@@ -18,23 +18,51 @@ Phases (each raises on failure; nothing is caught):
      through machine.prove(..., device=True), as bench.py does: one
      shard, 19,726,546 padded cells, through the kernel, verified;
   7. throughput: w24 x 2^19 states, 64 chained permutations, kernel and
-     plain version.
+     plain version; the kernel's bound from its SASS instruction counts;
+  8. Lurk goldens: the Lurk program golden.LURK_PROGRAM on the full Lurk
+     machine (47 chips), every chip on the device path with device
+     witness generation, at FriConfig(1, 8, 2): one shard with the golden
+     sha256, then two shards in keep mode `none` with theirs; both verify;
+  9. device witness: every chip of that program that lair/device_trace.py
+     supports generates on the card the same trace as on the host, in one
+     shard and in the first 3 shards at max_shard_size 64;
+ 10. full width: Lurk fib(100000) (benches/lurk_bench.py's program) at the
+     production FriConfig() and ShardingConfig(max_shard_size=262144),
+     through evaluate -> new_machine -> setup_cached -> machine.prove(...,
+     device=True) -> machine.verify: 4 shards, 326,397,960 padded cells,
+     through the kernel and device witness generation; cold and warm
+     proofs byte-identical to the checked-in
+     benches/artifacts/fib100k_4shard_proof.bin.gz.
 
 Prints the kernels' JSON line, then the device line last. Every time is
 printed beside the card's name and power limit.
 """
 
+import gzip
 import hashlib
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
+ROOT = Path(__file__).resolve().parent
 SLICE_N = (1 << 20) - 8
 SLICE_CELLS = 19_726_546
+FIB100K_CODE = ("(letrec ((fib (lambda (n) (if (<= n 1) n "
+                "(+ (fib (- n 1)) (fib (- (- n 1) 1))))))) (fib 100000))")
+FIB100K_SHARD_SIZE = 262_144
+FIB100K_SHARDS = 4
+FIB100K_CELLS = 326_397_960
+FIB100K_ARTIFACT = ROOT / "benches" / "artifacts" / "fib100k_4shard_proof.bin.gz"
+# H100 SXM data sheet: HBM3 at 3.35 TB/s
+HBM_BYTES_PER_S = 3.35e12
 
 
 def _sync():
@@ -63,6 +91,250 @@ def _event_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    return float(out.stdout.split()[0]) * 1e6
+
+
+# Issue model of one Hopper SM per clock: 4 sub-partitions each issue one
+# warp instruction (128 thread-instructions); the FMA pipe (IMAD, IMUL and
+# float multiply-adds) and the integer ALU pipe (IADD3, LOP3, SHF, ISETP,
+# SEL, ...) each take 64 thread-instructions. IMAD.WIDE and IMAD.HI produce
+# 64 bits and take two FMA-pipe slots. Uniform-datapath (U*) instructions,
+# memory, constant loads and control are counted for issue only.
+_FMA = ("IMAD", "IMUL", "FFMA", "FMUL", "FADD", "HFMA2", "IDP")
+_OTHER = ("LD", "ST", "S2R", "S2UR", "BRA", "EXIT", "NOP", "BAR", "RET",
+          "CALL", "MEMBAR", "DEPBAR", "WARPSYNC", "BSSY", "BSYNC", "U")
+
+
+def _sass_counts(lib: Path, width: int) -> dict:
+    """Per-thread pipe slots of perm_kernel<width, .> from cuobjdump -sass
+    of the built library: the kernel is fully unrolled, so the static
+    count is one permutation (plus the state's loads and stores)."""
+    cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / \
+        "bin" / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                         capture_output=True, text=True, check=True).stdout
+    counts = {"fma": 0, "alu": 0, "issue": 0}
+    ops = {}
+    inside = False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = f"perm_kernelILi{width}E" in line
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                      line)
+        if not inside or m is None:
+            continue
+        op = m.group(1)
+        ops[op] = ops.get(op, 0) + 1
+        counts["issue"] += 1
+        if op.startswith(_FMA):
+            counts["fma"] += 2 if op.startswith(("IMAD.WIDE", "IMAD.HI")) \
+                else 1
+        elif not op.startswith(_OTHER):
+            counts["alu"] += 1
+    if counts["issue"] == 0:
+        raise AssertionError(f"no SASS found for perm_kernel<{width}>")
+    counts["top"] = sorted(ops.items(), key=lambda kv: -kv[1])[:8]
+    return counts
+
+
+def _perm_bound(counts: dict, width: int, n_perm: int, sms: int,
+                clock_hz: float) -> tuple:
+    """(bound ms, "bytes" | "operations") of n_perm permutations of
+    `width` lanes: the state read once and written once over HBM, against
+    the busiest issue resource at the card's maximum SM clock."""
+    bytes_ms = 2 * 4 * width * n_perm / HBM_BYTES_PER_S * 1e3
+    slots = max(counts["fma"] / 64, counts["alu"] / 64, counts["issue"] / 128)
+    ops_ms = slots * n_perm / (sms * clock_hz) * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else \
+        (ops_ms, "operations")
+
+
+def _prove_lurk_golden(dev, shard_size, want, machine_queries):
+    """Prove golden.LURK_PROGRAM on the card and hold its sha256 to
+    `want`; returns (seconds, kernel launches, the prove's stats)."""
+    from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
+    from lurk_tpu_torch.stark import golden
+    from lurk_tpu_torch.stark.challenger import Challenger
+    permute_mont_cuda.launches = 0
+    t0 = time.perf_counter()
+    machine, vk, proof, digest = golden.lurk_proof(dev, shard_size,
+                                                   machine_queries)
+    _sync()
+    dt = time.perf_counter() - t0
+    launches = permute_mont_cuda.launches
+    stats = machine.last_device_prove
+    if digest != want:
+        raise AssertionError(f"Lurk proof (shard size {shard_size}) sha256 "
+                             f"{digest} != golden {want}")
+    if not machine.verify(vk, proof, Challenger()):
+        raise AssertionError(f"Lurk proof (shard size {shard_size}) does "
+                             "not verify")
+    if launches <= 0 or stats["device_witness_chips"] <= 0:
+        raise AssertionError(f"Lurk golden: {launches} kernel launches, "
+                             f"{stats['device_witness_chips']} device-made "
+                             "witnesses")
+    return dt, launches, stats
+
+
+def lurk_goldens(dev, on: str) -> None:
+    """Phases 8 and 9: the Lurk goldens on `dev` with every chip on the
+    device path and device witness on, then device witness == host
+    witness for every supported chip."""
+    from lurk_tpu_torch.field import babybear as bb
+    from lurk_tpu_torch.lair import device_trace
+    from lurk_tpu_torch.lair.chips import chip_included
+    from lurk_tpu_torch.lair.execute import Shard, ShardingConfig
+    from lurk_tpu_torch.lair.trace import FuncChip
+    from lurk_tpu_torch.stark import golden, hbm
+    from lurk_tpu_torch.stark.fri import FriConfig
+    os.environ["LURK_TPU_DEVICE_CHIP_MIN_ROWS"] = "0"
+    t0 = time.perf_counter()
+    machine, q, shown = golden.lurk_machine(golden.LURK_PROGRAM,
+                                            FriConfig(1, 8, 2))
+    if shown != golden.LURK_RESULT:
+        raise AssertionError(f"Lurk program evaluated to {shown}")
+    print(f"Lurk program -> {shown} (toplevel + evaluate "
+          f"{time.perf_counter() - t0:.3f}s) {on}")
+    dt, n, stats = _prove_lurk_golden(dev, None, golden.GOLDEN_LURK_SHA256,
+                                      (machine, q))
+    if stats["shards"] != 1:
+        raise AssertionError(f"one-shard golden ran {stats}")
+    print(f"Lurk golden, one shard: sha256 matches, verified, {dt:.3f}s, "
+          f"{n} kernel launches, {stats['device_witness_chips']} device-made "
+          f"witnesses {on}")
+    fits = (hbm.keep_rounds_fits, hbm.keep_light_fits)
+    hbm.keep_rounds_fits = hbm.keep_light_fits = lambda *a: False
+    try:
+        dt, n, stats = _prove_lurk_golden(
+            dev, golden.LURK_2SHARD_SIZE, golden.GOLDEN_LURK_2SHARD_SHA256,
+            (machine, q))
+    finally:
+        hbm.keep_rounds_fits, hbm.keep_light_fits = fits
+    if stats["shards"] != 2 or stats["keep_mode"] != "none":
+        raise AssertionError(f"2-shard golden ran {stats}")
+    print(f"Lurk golden, 2 shards, keep mode none: sha256 matches, "
+          f"verified, {dt:.3f}s, {n} kernel launches {on}")
+
+    # 9. device witness on the card == host witness
+    n_chips = 0
+    for size in (None, 64):
+        shards = Shard(q, 0, None if size is None
+                       else ShardingConfig(size)).shard()[:3]
+        for shard in shards:
+            for chip in machine.chips:
+                if not (isinstance(chip, FuncChip)
+                        and chip_included(chip, shard)
+                        and device_trace.supported(chip)):
+                    continue
+                got = device_trace.generate_trace_device(chip, shard, dev)
+                want = np.asarray(chip.generate_trace(shard), np.uint64)
+                if not np.array_equal(bb.to_numpy(got).astype(np.uint64),
+                                      want):
+                    raise AssertionError(f"device witness != host witness: "
+                                         f"{chip.name} shard {shard.index} "
+                                         f"(size {size})")
+                n_chips += 1
+    print(f"device witness on the card == host witness ({n_chips} chip "
+          "traces)")
+    del os.environ["LURK_TPU_DEVICE_CHIP_MIN_ROWS"]
+
+
+def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
+            want_cells: int, want_sha: str) -> int:
+    """Phase 10: evaluate `code`, set up with the key cache in a temporary
+    LURK_DIR, prove it twice (cold, warm) through machine.prove(...,
+    device=True) at FriConfig() and ShardingConfig(shard_size), hold the
+    proof to want_sha and verify it. Returns the warm prove's kernel
+    launches."""
+    import torch
+    from lurk_tpu_torch.core.eval_api import evaluate
+    from lurk_tpu_torch.core.eval_direct import build_lurk_toplevel
+    from lurk_tpu_torch.core.stark_machine import new_machine
+    from lurk_tpu_torch.lair import native
+    from lurk_tpu_torch.lair.execute import Shard, ShardingConfig
+    from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
+    from lurk_tpu_torch.stark.challenger import Challenger
+    from lurk_tpu_torch.stark.fri import FriConfig
+    from lurk_tpu_torch.stark.key_cache import setup_cached
+    from lurk_tpu_torch.utils import codec
+    if not native.native_available():
+        raise AssertionError("fib(100000) needs the native interpreter "
+                             "(cpp/liblair.so)")
+    lurk_dir = tempfile.mkdtemp(prefix="lurk_dir_")
+    os.environ["LURK_DIR"] = lurk_dir
+    try:
+        toplevel, zstore, _ = build_lurk_toplevel()
+        machine = new_machine(toplevel, FriConfig())
+        t0 = time.perf_counter()
+        result, q = evaluate(toplevel, zstore, code)
+        eval_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pk, vk = setup_cached(machine)
+        setup_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(lurk_dir, ignore_errors=True)
+        del os.environ["LURK_DIR"]
+    cfg = ShardingConfig(max_shard_size=shard_size)
+    cells = machine._trace_cells(q, cfg)
+    n_shards = len(Shard(q, 0, cfg).shard())
+    print(f"fib(100000) = {zstore.fmt(result)}: eval {eval_s:.3f}s, setup "
+          f"{setup_s:.3f}s, {n_shards} shards, {cells} padded cells {on}")
+    if (n_shards, cells) != (want_shards, want_cells):
+        raise AssertionError(f"{n_shards} shards / {cells} cells, expected "
+                             f"{want_shards} / {want_cells}")
+    runs = []
+    for label in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        permute_mont_cuda.launches = 0
+        t0 = time.perf_counter()
+        proof = machine.prove(pk, q, Challenger(), shard_config=cfg,
+                              device=True)
+        _sync()
+        dt = time.perf_counter() - t0
+        n = permute_mont_cuda.launches
+        stats = machine.last_device_prove
+        sha = hashlib.sha256(codec.encode(proof)).hexdigest()
+        peak = torch.cuda.max_memory_allocated()
+        runs.append((dt, n, sha))
+        print(f"fib(100000) {label} prove: {dt:.3f}s "
+              f"({cells / dt:.1f} cells/s), witness on the card "
+              f"{stats['device_witness_s']:.3f}s for "
+              f"{stats['device_witness_chips']} chips / "
+              f"{stats['device_witness_cells']} cells, on the host "
+              f"{stats['host_witness_s']:.3f}s for "
+              f"{stats['host_witness_chips']} chips / "
+              f"{stats['host_witness_cells']} cells, keep mode "
+              f"{stats['keep_mode']}, peak device memory "
+              f"{peak / 2**30:.2f} GiB vs modeled shard high-water "
+              f"{stats['modeled_highwater_bytes'] / 2**30:.2f} GiB (budget "
+              f"{stats['budget_bytes'] / 2**30:.2f} GiB), kernel launches "
+              f"{n}, sha256 {sha} {on}")
+        if n <= 0 or stats["device_witness_chips"] <= 0:
+            raise AssertionError(f"fib(100000): {n} kernel launches, "
+                                 f"{stats['device_witness_chips']} "
+                                 "device-made witnesses")
+        if len(proof.shard_proofs) != want_shards:
+            raise AssertionError(f"{len(proof.shard_proofs)} shards")
+    if runs[0][2] != runs[1][2]:
+        raise AssertionError("fib(100000): cold and warm proofs differ")
+    if runs[1][2] != want_sha:
+        raise AssertionError(f"fib(100000) proof sha256 {runs[1][2]} != "
+                             f"the checked-in proof's {want_sha}")
+    t0 = time.perf_counter()
+    ok = machine.verify(vk, proof, Challenger())
+    vt = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError("fib(100000) proof does not verify")
+    print(f"fib(100000): proof sha256 == checked-in proof's {want_sha}, "
+          f"verified in {vt:.3f}s {on}")
+    return runs[1][1]
 
 
 def main() -> int:
@@ -216,15 +488,39 @@ def main() -> int:
     print(f"w24 hashes/s: kernel {hashes / (k24 / 1e3):.1f}, plain "
           f"{hashes / (p24 / 1e3):.1f} {on}")
 
+    # the kernel's bound from its SASS instruction counts by pipe
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = _max_sm_clock_hz()
+    bounds = {}
+    for width, n_perm, ms in ((16, 1 << 21, k_ms), (24, hashes, k24)):
+        counts = _sass_counts(lib, width)
+        b_ms, b_by = _perm_bound(counts, width, n_perm, sms, clock)
+        bounds[width] = (b_ms, b_by)
+        print(f"w{width} x {n_perm} permutations: SASS per thread {counts} "
+              f"({sms} SMs at {clock / 1e6:.0f} MHz): bound {b_ms:.4f} ms "
+              f"({b_by}), kernel {ms:.4f} ms = {b_ms / ms:.3f} of the bound "
+              f"{on}")
+
+    lurk_goldens(dev, on)
+    fib_launches = fib100k(dev, on, FIB100K_CODE, FIB100K_SHARD_SIZE,
+                           FIB100K_SHARDS, FIB100K_CELLS,
+                           hashlib.sha256(gzip.decompress(
+                               FIB100K_ARTIFACT.read_bytes())).hexdigest())
+
     print(json.dumps({"kernels": [{
         "name": "poseidon2_permute",
         "route": "cuda",
         "source": "lurk_tpu_torch/csrc/poseidon2.cu",
         "replaces": "lurk_tpu/poseidon/tpu_kernel.py:132",
-        "launches": launches,
+        "launches": fib_launches,
+        "launches_by_path": {"demo_fib_2^20": launches,
+                             "lurk_fib100000": fib_launches},
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": bounds[16][0],
+        "bound_by": bounds[16][1],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

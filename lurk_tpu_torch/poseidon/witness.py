@@ -277,3 +277,76 @@ def permute_batch_np(width: int, states: np.ndarray) -> np.ndarray:
     for r in range(cfg.r_f // 2, cfg.r_f):
         st = _ext_layer_arr(_pow7_np((st + full_rc[r][None, :]) % _P))
     return st
+
+
+# --- device (torch) witness population --------------------------------------
+# Vectorized over the full (m, width) state in canonical int64, reducing
+# after every product; modular adds and products are exact, so the values
+# are the numpy path's, in the same column layout (pinned against lurk_tpu
+# in tests/test_torch_device_trace.py).
+
+
+def _dev_ext_layer_v(st):
+    """External (MDS) layer on (m, w) int64: the M4-blockwise product plus
+    per-position block sums (every intermediate is below 2^36)."""
+    import torch
+    m, w = st.shape
+    blk = st.reshape(m, w // 4, 4)
+    out = torch.stack([sum(M4[r][j] * blk[:, :, j] for j in range(4)) % P
+                       for r in range(4)], dim=2)      # (m, w//4, 4)
+    sums = out.sum(dim=1, keepdim=True)
+    return ((out + sums) % P).reshape(m, w)
+
+
+def _dev_pow7_v(x):
+    sb3 = x * x % P * x % P
+    return sb3, x * (sb3 * sb3 % P) % P
+
+
+def populate_batch_device(width: int, inputs):
+    """torch mirror of populate_batch: (m, width) canonical tensor ->
+    (witness (m, 8+num_cols), result (m, width)), int32 on the inputs'
+    device. Exact mod-p int64 arithmetic, identical column layout. This
+    lets the Poseidon wide chips (the widest traces in the Lurk machine)
+    populate on the device instead of being uploaded."""
+    import torch
+    cfg = get_config(width)
+    dev = inputs.device
+    full_rc = torch.as_tensor(np.asarray(cfg.full_rc_list, np.int64),
+                              device=dev)
+    diag = torch.as_tensor(np.asarray(cfg.diag_list, np.int64), device=dev)
+    state = _dev_ext_layer_v(inputs.to(torch.int64) % P)
+
+    ext_states = []
+    ext_sboxes = []
+
+    def ext_round(state, r):
+        ext_states.append(state)
+        sb3, x7 = _dev_pow7_v((state + full_rc[r][None, :]) % P)
+        ext_sboxes.append(sb3)
+        return _dev_ext_layer_v(x7)
+
+    for r in range(cfg.r_f // 2):
+        state = ext_round(state, r)
+    init_state = state
+    state0 = []
+    int_sbox = []
+    for r in range(cfg.r_p):
+        if r > 0:
+            state0.append(state[:, 0])
+        sb3, x7 = _dev_pow7_v((state[:, 0] + int(cfg.part_rc_list[r])) % P)
+        int_sbox.append(sb3)
+        state = torch.cat([x7[:, None], state[:, 1:]], dim=1)
+        s = state.sum(dim=1) % P            # w * (p-1) < 2^37
+        state = (state * diag[None, :] % P + s[:, None]) % P
+    for r in range(cfg.r_f // 2, cfg.r_f):
+        state = ext_round(state, r)
+
+    result = state
+    parts = [result[:, :8]] + ext_states + ext_sboxes + [init_state]
+    if state0:
+        parts.append(torch.stack(state0, dim=1))
+    parts.append(torch.stack(int_sbox, dim=1))
+    witness = torch.cat(parts, dim=1)
+    assert witness.shape[1] == 8 + num_cols(width)
+    return witness.to(torch.int32), result.to(torch.int32)

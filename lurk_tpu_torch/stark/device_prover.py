@@ -20,10 +20,11 @@ goes through the CUDA kernel (poseidon/cuda_kernel.py) on a CUDA device.
 
 Ported: mod sums, the device Merkle trees, the committed rounds (LDE +
 tree), the plan-driven LogUp permutation trace, the constraint-VM
-quotient, the openings and FRI, and device_prove's `full` and `light` keep
-modes. Not ported yet (ROADMAP.md): the per-chip DAG perm path, the
-windowed and monolithic quotient, the row-sharded mesh commit, keep mode
-`none` and device witness generation.
+quotient, the openings and FRI, device witness generation for big
+extern-free func chips and the hash3/4/5 chips (lair/device_trace.py),
+and device_prove's `full`, `light` and `none` keep modes. Not ported yet
+(ROADMAP.md): the per-chip DAG perm path, the windowed and monolithic
+quotient and the row-sharded mesh commit.
 """
 
 from __future__ import annotations
@@ -79,8 +80,13 @@ def _log2(n: int) -> int:
 
 
 def default_device() -> torch.device:
-    """The CUDA device when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The CUDA device. There is no fallback: without CUDA this raises,
+    and the prover runs on the CPU only when the caller names it
+    (device="cpu"), as the tests do."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the device prover needs a CUDA device; pass "
+                           "device='cpu' to run it on the CPU")
+    return torch.device("cuda")
 
 
 # ---------------------------------------------------------------------------
@@ -1079,20 +1085,36 @@ def device_open_rounds(rounds: List[DRound],
 def device_prove(machine, pk, queries, challenger, shard_config=None,
                  shards=None, device=None):
     """Device-resident equivalent of StarkMachine.prove: same transcript,
-    same proof object, traces resident on `device` (default: CUDA when
-    present, else the CPU) from commit to FRI.
+    same proof object, traces resident on `device` from commit to FRI.
+    `device` defaults to CUDA and there is no fallback: without a card
+    this raises unless the caller names the CPU (device="cpu").
 
     `shards` (a pre-computed default-config split from machine.prove's
     size probe) is ignored: sharding is re-planned here against the
     device memory budget (stark/hbm.py) unless an explicit shard_config /
-    SHARD_SIZE pins it. Witnesses are generated on the host and uploaded."""
+    SHARD_SIZE pins it. Big extern-free func chips and the hash3/4/5
+    chips generate their witness on the device (_device_witness_enabled);
+    the other chips' witnesses are generated on the host and uploaded.
+
+    Leaves `machine.last_device_prove`, a dict of what this prove planned
+    and where it generated witnesses: shard count, keep mode, the memory
+    model's shard high-water and budget, and the chips, padded cells and
+    host-clock seconds of the witnesses made on the device (dispatch: the
+    device runs on asynchronously) or on the host and uploaded."""
     from ..lair.chips import chip_included
     from .machine import MachineProof
-    from .hbm import plan_shards, keep_rounds_fits, keep_light_fits
+    from .hbm import (plan_shards, keep_rounds_fits, keep_light_fits,
+                      shard_highwater_bytes)
 
     device = torch.device(device) if device is not None else default_device()
     shards, hbm_budget = plan_shards(machine, queries, shard_config)
     pv = queries.expect_public_values()
+    stats = machine.last_device_prove = dict(
+        shards=len(shards), budget_bytes=hbm_budget,
+        modeled_highwater_bytes=max(shard_highwater_bytes(machine, s)
+                                    for s in shards),
+        device_witness_chips=0, device_witness_cells=0, device_witness_s=0.0,
+        host_witness_chips=0, host_witness_cells=0, host_witness_s=0.0)
 
     # device prep round (bit-exact vs pk: same commitment algorithm)
     prep_round = None
@@ -1114,7 +1136,10 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
     # Pass 1: commit every shard's main traces and absorb the roots (the
     # transcript requires all main commitments before any challenge).
     # `full` keeps every shard's committed round; `light` keeps only the
-    # mats + coefficients and rebuilds LDE + trees in pass 2.
+    # mats + coefficients and rebuilds LDE + trees in pass 2; `none` keeps
+    # only the roots and recommits each shard from its witness in pass 2
+    # (device-made traces are generated again), so device memory is
+    # bounded by one shard.
     if keep_rounds_fits(machine, shards, hbm_budget):
         keep_mode = "full"
     elif keep_light_fits(machine, shards, hbm_budget):
@@ -1123,37 +1148,56 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
         keep_mode = "none"
     if len(shards) == 1 and keep_mode == "none":
         keep_mode = "light"          # never commit one shard twice in full
-    if keep_mode == "none":
-        raise NotImplementedError(
-            "keep mode 'none' (recommit every shard from its witness) is "
-            "not ported: raise LURK_TPU_HBM_BYTES or pin SHARD_SIZE")
     keep_rounds = keep_mode == "full"
+    stats["keep_mode"] = keep_mode
     if _TIMING:
         print(f"[prove-timing] plan: {len(shards)} shard(s), keep mode "
-              f"{keep_mode}{_mem_str()}", file=_sys.stderr, flush=True)
+              f"{keep_mode}, modeled high-water "
+              f"{stats['modeled_highwater_bytes'] / 2**30:.2f} GiB, "
+              f"budget {hbm_budget / 2**30:.2f} GiB{_mem_str()}",
+              file=_sys.stderr, flush=True)
     shard_chip_lists = []
     shard_roots = []
     kept_rounds = []      # per-shard DRound when keep_mode == "full"
     kept_light = []       # per-shard (mats, groups, coeffs, widths, lhs)
-    shard_pendings = []   # light: per-shard deferred root buffers
+    shard_pendings = []   # light/none: per-shard deferred root buffers
+    dev_witness = _device_witness_enabled(device)
     for shard in shards:
         t0 = _time.perf_counter()
         chips = [c for c in machine.chips if chip_included(c, shard)]
-        traces_np = []
+        traces_np = []    # host arrays, or _DeviceGenTrace placeholders
         mats_dev = []
         for c in chips:
-            t = np.asarray(c.generate_trace(shard), np.uint64)
-            traces_np.append(t)
-            mats_dev.append(bb.from_numpy(t, device))
+            tc = _time.perf_counter()
+            mat = None
+            if dev_witness and c.num_rows(shard) >= _host_chip_min_rows():
+                from ..lair import device_trace
+                mat = device_trace.generate_trace_device(c, shard, device)
+            if mat is not None:
+                traces_np.append(_DeviceGenTrace(mat.shape, c, shard,
+                                                 device))
+                kind = "device"
+            else:
+                t = np.asarray(c.generate_trace(shard), np.uint64)
+                traces_np.append(t)
+                mat = bb.from_numpy(t, device)
+                kind = "host"
+            mats_dev.append(mat)
+            stats[f"{kind}_witness_chips"] += 1
+            stats[f"{kind}_witness_cells"] += mat.numel()
+            stats[f"{kind}_witness_s"] += _time.perf_counter() - tc
         t0 = _tlog(f"shard{shard.index} witness+upload", t0)
         shard_chip_lists.append((chips, traces_np))
         rnd = dcommit(mats_dev, device, finalize=False)
+        del mats_dev
         if keep_rounds:
             kept_rounds.append(rnd)
         else:
             shard_pendings.append([t.pending for _, t in rnd.trees])
-            kept_light.append((rnd.matrices, rnd.groups, rnd.group_coeffs,
-                               rnd.widths, rnd.log_heights))
+            if keep_mode == "light":
+                kept_light.append((rnd.matrices, rnd.groups,
+                                   rnd.group_coeffs, rnd.widths,
+                                   rnd.log_heights))
         t0 = _tlog(f"shard{shard.index} main dcommit (deferred)", t0)
         del rnd
     t0 = _time.perf_counter()
@@ -1180,12 +1224,20 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
         t0 = _time.perf_counter()
         if keep_rounds:
             main_round = kept_rounds[si]
-        else:
+        elif keep_mode == "light":
             main_round = recommit_from_coeffs(kept_light[si])
             assert main_round.roots == roots, \
                 "coeff-rebuilt commitment diverged from pass 1"
             kept_light[si] = None
             t0 = _tlog(f"shard{shard.index} lde-recommit", t0)
+        else:
+            # recommit (deterministic) from the witness: one extra commit
+            # per shard for device memory bounded by a single shard
+            main_round = dcommit([t.regen() if isinstance(t, _DeviceGenTrace)
+                                  else t for t in traces_np], device)
+            assert main_round.roots == roots, \
+                "device main commitment is not deterministic"
+            t0 = _tlog(f"shard{shard.index} recommit", t0)
         ch = challenger.copy()
         shard_proofs.append(_device_prove_shard(
             machine, pk, prep_round, prep_names, shard, chips, traces_np,
@@ -1195,6 +1247,39 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
             kept_rounds[si] = None        # fully consumed: free its trees
         del main_round
     return MachineProof(shard_proofs, list(pv))
+
+
+def _device_witness_enabled(device: torch.device) -> bool:
+    """Device-resident witness generation for big extern-free func chips
+    and the hash3/4/5 chips (lair/device_trace.py). On by default when the
+    prover runs on CUDA; on the CPU the host path (threaded C++ where
+    built) stays. LURK_TPU_DEVICE_WITNESS=0/1 overrides either way (the
+    CPU tests force it on)."""
+    val = _os.environ.get("LURK_TPU_DEVICE_WITNESS", "")
+    if val in ("0", "1"):
+        return val == "1"
+    return device.type == "cuda"
+
+
+class _DeviceGenTrace:
+    """Placeholder in traces_np slots for device-generated traces: keeps
+    the shape (for the host/device routing decision) and regenerates the
+    device matrix deterministically for the keep-none recommit."""
+
+    __slots__ = ("shape", "_chip", "_shard", "_device")
+
+    def __init__(self, shape, chip, shard, device):
+        self.shape = tuple(shape)
+        self._chip = chip
+        self._shard = shard
+        self._device = device
+
+    def regen(self) -> torch.Tensor:
+        from ..lair import device_trace
+        dev = device_trace.generate_trace_device(self._chip, self._shard,
+                                                 self._device)
+        assert dev is not None
+        return dev
 
 
 def _host_chip_min_rows() -> int:

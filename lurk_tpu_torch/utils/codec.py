@@ -51,6 +51,7 @@ def _ensure_registered():
     global _ENSURED
     if _ENSURED:
         return
+    from ..cli import data as _data        # noqa: F401
     from ..stark import machine as _m      # noqa: F401
     from ..stark import pcs as _pcs        # noqa: F401
     from ..stark import fri as _fri        # noqa: F401

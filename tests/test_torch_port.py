@@ -1,6 +1,7 @@
 """lurk_tpu_torch as a package: it imports no jax, its copied modules are
 lurk_tpu's, its golden digest is lurk_tpu's, its memory probe works
-without a card, and chip_smoke.py refuses to run without one.
+without a card, and neither its device prover nor chip_smoke.py runs
+without one unless the CPU is asked for.
 """
 
 import difflib
@@ -87,18 +88,30 @@ lair/expr.py lair/toplevel.py lair/bytecode.py lair/execute.py
 lair/columnar.py lair/native_codec.py lair/native.py lair/func_chip.py
 lair/trace.py lair/air.py lair/chips.py lair/demo.py air/symbolic.py
 air/debug.py logup/__init__.py logup/constraints.py logup/trace.py
-logup/affine.py utils/codec.py""".split()
+logup/affine.py utils/codec.py gadgets/unsigned.py core/tag.py
+core/symbol.py core/state.py core/lang.py core/parser.py core/zstore.py
+core/misc.py core/ingress.py core/chipset.py core/eval_direct.py
+core/eval_api.py core/stark_machine.py cli/data.py stark/key_cache.py""".split()
+
+# witness.py: the host half is lurk_tpu's; its device half (from this line
+# on) is lurk_tpu's jnp code ported to torch
+WITNESS_DEVICE_HALF = "# --- device ("
 
 
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_module_differs_only_in_imports(rel):
     """The JAX-free modules are lurk_tpu's, copied; only import lines may
-    differ, plus machine.prove's backend check and witness.py's jnp half
-    (not part of the port)."""
+    differ, plus machine.prove's backend check and witness.py's device
+    half (jnp in lurk_tpu, torch in the port)."""
     mine = (ROOT / "lurk_tpu_torch" / rel).read_text().splitlines()
     theirs = (ROOT / "lurk_tpu" / rel).read_text().splitlines()
     if rel == "poseidon/witness.py":
-        theirs = theirs[:len(mine)]
+        def host_half(lines):
+            cut = [i for i, l in enumerate(lines)
+                   if l.startswith(WITNESS_DEVICE_HALF)]
+            assert len(cut) == 1
+            return lines[:cut[0]]
+        mine, theirs = host_half(mine), host_half(theirs)
     changed = [l[1:].strip() for l in difflib.unified_diff(theirs, mine,
                                                            lineterm="", n=0)
                if l[:1] in "+-" and l[:3] not in ("+++", "---")]
@@ -108,6 +121,27 @@ def test_copied_module_differs_only_in_imports(rel):
     for line in changed:
         assert line.startswith(("from ", "import ")) or line in allowed, \
             (rel, line)
+
+
+def test_device_prover_has_no_cpu_fallback():
+    """Without CUDA the device prover raises unless the caller names the
+    CPU: device_prove, machine.prove(device=True) and the golden proof."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device exists")
+    from lurk_tpu_torch.stark.challenger import Challenger
+    from lurk_tpu_torch.stark.device_prover import device_prove
+    from lurk_tpu_torch.stark.fri import FriConfig
+    machine, q = golden.fib_machine(8, FriConfig(1, 8, 2))
+    pk, vk = machine.setup()
+    for prove in (lambda: device_prove(machine, pk, q, Challenger()),
+                  lambda: machine.prove(pk, q, Challenger(), device=True),
+                  golden.fib_proof):
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            prove()
+    # machine.prove(device=None) keeps lurk_tpu's routing: a workload under
+    # 2^22 cells goes to the host prover, card or not
+    assert machine.verify(vk, machine.prove(pk, q, Challenger()),
+                          Challenger())
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -1,6 +1,7 @@
 """The slice at small size: lurk_tpu_torch's device prover (torch tensors
-on the CPU, every chip forced through the device path by conftest's
-LURK_TPU_DEVICE_CHIP_MIN_ROWS=0) against lurk_tpu's host prover.
+on the CPU, asked for with device="cpu"; every chip forced through the
+device path by conftest's LURK_TPU_DEVICE_CHIP_MIN_ROWS=0) against
+lurk_tpu's host prover.
 
 For factorial(5), fib(7) and fib(1000) at FriConfig(1, 8, 2) the encoded
 proofs must be byte-identical; the port's verifier must accept its proof
@@ -33,6 +34,7 @@ from lurk_tpu_torch.lair.execute import QueryRecord, execute_by_name
 from lurk_tpu_torch.lair.trace import FuncChip
 from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
 from lurk_tpu_torch.stark import hbm
+from lurk_tpu_torch.stark.device_prover import device_prove
 from lurk_tpu_torch.stark.challenger import Challenger
 from lurk_tpu_torch.stark.fri import FriConfig
 from lurk_tpu_torch.stark.machine import StarkMachine
@@ -75,7 +77,8 @@ def test_device_proofs_match_lurk_tpu():
     for entry, arg in STATEMENTS:
         jmachine, jvk, jproof = _lurk_tpu_host(entry, arg)
         machine, pk, vk, q = _port(entry, arg)
-        data = codec.encode(machine.prove(pk, q, Challenger(), device=True))
+        data = codec.encode(device_prove(machine, pk, q, Challenger(),
+                                         device="cpu"))
         at = f"{entry}({arg})"
 
         # byte-identical to lurk_tpu's host proof
@@ -108,7 +111,7 @@ def test_keep_light_and_device_fri_folds_bit_exact(monkeypatch):
     monkeypatch.setattr(hbm, "keep_rounds_fits", lambda *a: False)
     monkeypatch.setattr(hbm, "keep_light_fits", lambda *a: True)
     monkeypatch.setenv("LURK_TPU_FRI_HOST_TAIL_LOG", "0")
-    proof = machine.prove(pk, q, Challenger(), device=True)
+    proof = device_prove(machine, pk, q, Challenger(), device="cpu")
     _, _, jproof = _lurk_tpu_host("factorial", 5)
     assert codec.encode(proof) == jcodec.encode(jproof)
     assert permute_mont_cuda.launches == 0      # no card: plain version
