@@ -32,7 +32,18 @@ Phases (each raises on failure; nothing is caught):
      device=True) -> machine.verify: 4 shards, 326,397,960 padded cells,
      through the kernel and device witness generation; cold and warm
      proofs byte-identical to the checked-in
-     benches/artifacts/fib100k_4shard_proof.bin.gz.
+     benches/artifacts/fib100k_4shard_proof.bin.gz;
+ 11. the REPL: one lurk_tpu_torch REPL at the CLI's default config
+     (PRODUCTION_CONFIG) loads the demo corpus (golden.DEMO_FILES, `!(clear)`
+     before each); every `!(prove)` runs on the card, every proof file
+     `!(verify)`s to t and, where deterministic, has lurk_tpu's sha256; a
+     second pass proves the corpus again warm;
+ 12. the CLI: `python -m lurk_tpu_torch load <file> --prove` on
+     golden.CLI_PROGRAM (past 2^22 padded cells) exits 0 and writes the
+     proof file with lurk_tpu's sha256;
+ 13. the microchain: `microchain.serve` on a daemon thread with its own
+     REPL; the phase-11 REPL starts a chain, proves two transitions on the
+     card and verifies the chain's history.
 
 Prints the kernels' JSON line, then the device line last. Every time is
 printed beside the card's name and power limit.
@@ -47,6 +58,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -60,6 +72,10 @@ FIB100K_CODE = ("(letrec ((fib (lambda (n) (if (<= n 1) n "
 FIB100K_SHARD_SIZE = 262_144
 FIB100K_SHARDS = 4
 FIB100K_CELLS = 326_397_960
+MICROCHAIN_STATE = (
+    "(letrec ((acc (lambda (total) (lambda (amount) (let ((total (+ total "
+    "amount))) (cons total (commit (acc total)))))))) (cons 0 (commit (acc "
+    "0))))")
 FIB100K_ARTIFACT = ROOT / "benches" / "artifacts" / "fib100k_4shard_proof.bin.gz"
 # H100 SXM data sheet: HBM3 at 3.35 TB/s
 HBM_BYTES_PER_S = 3.35e12
@@ -337,6 +353,199 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
     return runs[1][1]
 
 
+def _proofs(lurk_dir: Path) -> set:
+    return set((lurk_dir / "proofs").glob("*"))
+
+
+class _TimedProves:
+    """Wraps repl.prove_last_reduction, the one way a REPL proves: records
+    each prove's padded main-trace cells, host seconds (ending in a device
+    sync) and kernel launches."""
+
+    def __init__(self, repl):
+        self.repl = repl
+        self.inner = repl.prove_last_reduction
+        self.runs = []
+        repl.prove_last_reduction = self
+
+    def __call__(self):
+        from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
+        cells = self.repl.machine()._trace_cells(self.repl.queries, None)
+        n0 = permute_mont_cuda.launches
+        t0 = time.perf_counter()
+        key = self.inner()
+        _sync()
+        self.runs.append((cells, time.perf_counter() - t0,
+                          permute_mont_cuda.launches - n0))
+        return key
+
+
+def _load_demo(repl, timed, lurk_dir: Path, name: str):
+    """Load demo/<name>.lurk into `repl` after `!(clear)`, with no proof in
+    the cache; check every proof file it writes against lurk_tpu's sha256
+    (where deterministic) and `!(verify)` it. Returns (seconds, kernel
+    launches, proof files, the proves' (cells, seconds, launches))."""
+    from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
+    from lurk_tpu_torch.stark import golden
+    for path in _proofs(lurk_dir):
+        path.unlink()
+    timed.runs.clear()
+    repl.process("!(clear)")
+    permute_mont_cuda.launches = 0
+    t0 = time.perf_counter()
+    repl.load_file(ROOT / "demo" / f"{name}.lurk")
+    _sync()
+    dt = time.perf_counter() - t0
+    launches = permute_mont_cuda.launches
+    got = {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+           for p in sorted(_proofs(lurk_dir))}
+    if len(got) != len(timed.runs):
+        raise AssertionError(f"{name}: {len(timed.runs)} proves, "
+                             f"{len(got)} proof files")
+    want = golden.DEMO_PROOF_SHA256.get(name)
+    if want is not None and got != want:
+        raise AssertionError(f"{name}: proof files {got} != lurk_tpu's "
+                             f"{want}")
+    for key in got:
+        if repl.process(f'!(verify "{key}")') != repl.zstore.t:
+            raise AssertionError(f"{name}: {key} does not verify")
+    return dt, launches, got, list(timed.runs)
+
+
+def repl_corpus(on: str, lurk_dir: Path):
+    """Phase 11: the demo corpus through one REPL at PRODUCTION_CONFIG,
+    cold then warm, then the smallest demo proof on the host prover and
+    on the card in turns. Returns (the REPL, the cold pass's kernel
+    launches)."""
+    from lurk_tpu_torch.cli.repl import Repl
+    from lurk_tpu_torch.stark import golden
+    t0 = time.perf_counter()
+    repl = Repl()
+    timed = _TimedProves(repl)
+    print(f"REPL at {repl.config}: built in {time.perf_counter() - t0:.3f}s "
+          f"{on}")
+    total = 0
+    cells = {}
+    for label in ("cold", "warm"):
+        for name in golden.DEMO_FILES:
+            dt, launches, got, runs = _load_demo(repl, timed, lurk_dir, name)
+            if got and launches <= 0:
+                raise AssertionError(f"{name}: no kernel launch")
+            if label == "cold":
+                total += launches
+            if len(runs) == 1 and name in golden.DEMO_PROOF_SHA256:
+                cells[name] = runs[0][0]
+            proves = ", ".join(f"{c} cells {s:.3f}s {n} launches"
+                               for c, s, n in runs) or "none"
+            held = ("== lurk_tpu's" if name in golden.DEMO_PROOF_SHA256
+                    else "not held (!(rand))" if got else "-")
+            print(f"REPL {label} {name}.lurk: {dt:.3f}s, {len(got)} proofs "
+                  f"({proves}), {launches} kernel launches, sha256 {held}, "
+                  f"verified {on}")
+    # the smallest demo proof: host prover (LURK_TPU_PROVE=host) against
+    # the card, in turns
+    name = min(cells, key=cells.get)
+    for prover in ("host", "device", "device", "host"):
+        if prover == "host":
+            os.environ["LURK_TPU_PROVE"] = "host"
+        try:
+            _, launches, _, runs = _load_demo(repl, timed, lurk_dir, name)
+        finally:
+            os.environ.pop("LURK_TPU_PROVE", None)
+        if (launches > 0) != (prover == "device"):
+            raise AssertionError(f"{prover} prover: {launches} launches")
+        print(f"smallest demo proof ({name}.lurk, {runs[0][0]} cells) on "
+              f"the {prover} prover: !(prove) {runs[0][1]:.3f}s, {launches} "
+              f"kernel launches, sha256 == lurk_tpu's {on}")
+    repl.prove_last_reduction = timed.inner
+    return repl, total
+
+
+def cli_load(on: str, lurk_dir: Path) -> int:
+    """Phase 12: `python -m lurk_tpu_torch load <file> --prove` in a child
+    process; returns its prove's kernel launches, which device_prove
+    prints under LURK_TPU_PROVE_TIMING=1."""
+    from lurk_tpu_torch.stark import golden
+    src = lurk_dir / "cli_program.lurk"
+    src.write_text(golden.CLI_PROGRAM)
+    env = dict(os.environ, LURK_TPU_PROVE_TIMING="1",
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (str(ROOT), os.environ.get("PYTHONPATH"))
+                   if p))
+    env.pop("LURK_TPU_PROVE", None)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "lurk_tpu_torch", "load",
+                          str(src), "--prove"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"python -m lurk_tpu_torch load --prove exited "
+                             f"{res.returncode}:\n{res.stdout}\n"
+                             f"{res.stderr[-4000:]}")
+    key = re.search(r'Proof key: "([0-9a-f]+)"', res.stdout).group(1)
+    sha = hashlib.sha256((lurk_dir / "proofs" / key).read_bytes()).hexdigest()
+    if (key, sha) != (golden.CLI_PROOF_KEY, golden.CLI_PROOF_SHA256):
+        raise AssertionError(f"CLI proof {key} sha256 {sha} != lurk_tpu's "
+                             f"{golden.CLI_PROOF_KEY} {golden.CLI_PROOF_SHA256}")
+    launches = [int(n) for n in re.findall(
+        r"\[prove-timing\] device_prove: .* (\d+) Poseidon2 kernel launches",
+        res.stderr)]
+    if len(launches) != 1 or launches[0] <= 0:
+        raise AssertionError(f"CLI prove launches {launches}")
+    timing = [l for l in res.stderr.splitlines()
+              if l.startswith("[prove-timing]")]
+    print("\n".join(f"  cli {l}" for l in timing))
+    print(f"CLI load --prove fib(1000): exit 0 in {dt:.3f}s (process), "
+          f"{launches[0]} kernel launches, proof sha256 == lurk_tpu's "
+          f"{sha} {on}")
+    return launches[0]
+
+
+def microchain_round_trip(on: str, repl) -> int:
+    """Phase 13: a microchain server (its own REPL, verifying on the host)
+    on a daemon thread; `repl` starts a chain and proves two transitions
+    on the card. Returns the transitions' kernel launches."""
+    import socket
+    from lurk_tpu_torch.cli import microchain
+    from lurk_tpu_torch.cli.repl import Repl
+    from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    addr = f"127.0.0.1:{port}"
+    threading.Thread(target=microchain.serve, args=(Repl(), addr),
+                     daemon=True).start()
+    deadline = time.monotonic() + 60
+    while True:
+        try:
+            socket.create_connection(("127.0.0.1", port)).close()
+            break
+        except OSError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.1)
+    repl.process("!(clear)")
+    repl.process(f"!(def s0 {MICROCHAIN_STATE})")
+    repl.process(f'!(def id !(microchain-start "{addr}" s0))')
+    permute_mont_cuda.launches = 0
+    t0 = time.perf_counter()
+    repl.process(f'!(defq s1 !(microchain-transition "{addr}" id s0 7))')
+    repl.process(f'!(defq s2 !(microchain-transition "{addr}" id s1 10))')
+    _sync()
+    dt = time.perf_counter() - t0
+    launches = permute_mont_cuda.launches
+    if launches <= 0:
+        raise AssertionError("microchain transitions: no kernel launch")
+    total = repl.fmt(repl.process("(car s2)"))
+    if total != "17":
+        raise AssertionError(f"microchain state total {total} != 17")
+    if repl.process(f'!(microchain-verify "{addr}" id)') != repl.zstore.t:
+        raise AssertionError("microchain history does not verify")
+    print(f"microchain: 2 transitions proved on the card and accepted in "
+          f"{dt:.3f}s, {launches} kernel launches, history verified {on}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -507,6 +716,17 @@ def main() -> int:
                            hashlib.sha256(gzip.decompress(
                                FIB100K_ARTIFACT.read_bytes())).hexdigest())
 
+    # 11-13. the REPL, the CLI and the microchain, every proof on the card
+    lurk_dir = Path(tempfile.mkdtemp(prefix="lurk_dir_"))
+    os.environ["LURK_DIR"] = str(lurk_dir)
+    try:
+        repl, repl_launches = repl_corpus(on, lurk_dir)
+        cli_launches = cli_load(on, lurk_dir)
+        chain_launches = microchain_round_trip(on, repl)
+    finally:
+        del os.environ["LURK_DIR"]
+        shutil.rmtree(lurk_dir, ignore_errors=True)
+
     print(json.dumps({"kernels": [{
         "name": "poseidon2_permute",
         "route": "cuda",
@@ -514,7 +734,10 @@ def main() -> int:
         "replaces": "lurk_tpu/poseidon/tpu_kernel.py:132",
         "launches": fib_launches,
         "launches_by_path": {"demo_fib_2^20": launches,
-                             "lurk_fib100000": fib_launches},
+                             "lurk_fib100000": fib_launches,
+                             "repl_demo_corpus": repl_launches,
+                             "cli_load": cli_launches,
+                             "microchain": chain_launches},
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,

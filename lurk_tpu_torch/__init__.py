@@ -14,7 +14,14 @@ roots and encoded proof bytes. It imports torch and numpy, never jax.
   logup/    LogUp permutation traces, constraints and affine plans.
   stark/    Merkle commitments, challenger, FRI PCS, the STARK machine and
             the device prover on torch tensors.
+  core/     The Lurk language: parser, ZStore, evaluator, the Lurk machine.
+  gadgets/  Unsigned-integer Lair gadgets.
+  cli/      The REPL, meta commands, proof persistence, microchain server.
+  ocaml/    The OCaml frontend of !(load-ocaml).
   utils/    The wire codec.
+
+`python -m lurk_tpu_torch repl|load|microchain` runs the CLI; its proofs
+run on the CUDA card (LURK_TPU_PROVE=host asks for the host prover).
 """
 
 __version__ = "0.1.0"

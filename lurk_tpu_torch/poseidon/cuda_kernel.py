@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from functools import lru_cache
 from pathlib import Path
 
@@ -33,6 +34,9 @@ WIDTHS = (16, 24, 32, 40)
 _ROOT = Path(__file__).resolve().parents[2]
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "poseidon2.cu"
 BUILD_DIR = _ROOT / "build" / "lurk_tpu_torch"
+# one build at a time in this process: the REPL's warmup thread and a
+# first prove may both ask for the library
+_BUILD_LOCK = threading.Lock()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -53,6 +57,11 @@ def build(verbose: bool = False) -> Path:
     """Compile csrc/poseidon2.cu into build/ (keyed by the source's hash,
     so an edited source is never served by a stale library). Returns the
     library path; raises on a failed build."""
+    with _BUILD_LOCK:
+        return _build(verbose)
+
+
+def _build(verbose: bool) -> Path:
     src = _SOURCE.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"libposeidon2_{tag}.so"

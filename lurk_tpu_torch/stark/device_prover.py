@@ -1098,15 +1098,19 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
 
     Leaves `machine.last_device_prove`, a dict of what this prove planned
     and where it generated witnesses: shard count, keep mode, the memory
-    model's shard high-water and budget, and the chips, padded cells and
+    model's shard high-water and budget, the chips, padded cells and
     host-clock seconds of the witnesses made on the device (dispatch: the
-    device runs on asynchronously) or on the host and uploaded."""
+    device runs on asynchronously) or on the host and uploaded, and the
+    Poseidon2 kernel launches of the prove (printed to stderr under
+    LURK_TPU_PROVE_TIMING=1, so that a CLI run reports them)."""
     from ..lair.chips import chip_included
+    from ..poseidon.cuda_kernel import permute_mont_cuda
     from .machine import MachineProof
     from .hbm import (plan_shards, keep_rounds_fits, keep_light_fits,
                       shard_highwater_bytes)
 
     device = torch.device(device) if device is not None else default_device()
+    launches0 = permute_mont_cuda.launches
     shards, hbm_budget = plan_shards(machine, queries, shard_config)
     pv = queries.expect_public_values()
     stats = machine.last_device_prove = dict(
@@ -1246,6 +1250,11 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
         if keep_rounds:
             kept_rounds[si] = None        # fully consumed: free its trees
         del main_round
+    stats["kernel_launches"] = permute_mont_cuda.launches - launches0
+    if _TIMING:
+        print(f"[prove-timing] device_prove: {len(shards)} shard(s), "
+              f"{stats['kernel_launches']} Poseidon2 kernel launches",
+              file=_sys.stderr, flush=True)
     return MachineProof(shard_proofs, list(pv))
 
 

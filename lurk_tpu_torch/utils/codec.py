@@ -52,6 +52,7 @@ def _ensure_registered():
     if _ENSURED:
         return
     from ..cli import data as _data        # noqa: F401
+    from ..cli import microchain as _mc    # noqa: F401
     from ..stark import machine as _m      # noqa: F401
     from ..stark import pcs as _pcs        # noqa: F401
     from ..stark import fri as _fri        # noqa: F401
