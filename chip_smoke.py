@@ -43,7 +43,26 @@ Phases (each raises on failure; nothing is caught):
      proof file with lurk_tpu's sha256;
  13. the microchain: `microchain.serve` on a daemon thread with its own
      REPL; the phase-11 REPL starts a chain, proves two transitions on the
-     card and verifies the chain's history.
+     card and verifies the chain's history;
+ 14. compiled goldens: the compiled pipeline (core/eval_compiled.py, 43
+     chips) proves golden.LURK_PROGRAM in one shard and in two (keep mode
+     `none`) at FriConfig(1, 8, 2), every chip on the device path, and
+     golden.CLI_PROGRAM (fib(1000)) at PRODUCTION_CONFIG with the default
+     routing, all with device witness; each sha256 equals lurk_tpu's host
+     proof's and each proof verifies; every compiled chip that
+     lair/device_trace.py supports makes the host's trace on the card, as
+     in phase 9;
+ 15. forced paths: the direct LURK_PROGRAM golden with every chip on the
+     device path under LURK_TPU_GENERIC_PERM=0, LURK_TPU_QUOT=window and
+     LURK_TPU_QUOT=mono (the per-chip DAG paths), each with
+     GOLDEN_LURK_SHA256; a second proof on the default path and under
+     LURK_TPU_QUOT=window, under torch.profiler, counts its device events;
+ 16. full scale, compiled: fib(100000) on the compiled machine at
+     FriConfig() and ShardingConfig(max_shard_size=262144), 4 shards,
+     218,659,792 padded cells, cold and warm; the result equals the direct
+     pipeline's and the proof verifies;
+ 17. loam and narrow: the copies import without jax and a loam evaluation
+     of fib(5) gives 8n.
 
 Prints the kernels' JSON line, then the device line last. Every time is
 printed beside the card's name and power limit.
@@ -72,6 +91,13 @@ FIB100K_CODE = ("(letrec ((fib (lambda (n) (if (<= n 1) n "
 FIB100K_SHARD_SIZE = 262_144
 FIB100K_SHARDS = 4
 FIB100K_CELLS = 326_397_960
+FIB100K_RESULT = "2754320626097736315"
+COMPILED_FIB100K_CELLS = 218_659_792
+FORCED_PATHS = ({"LURK_TPU_GENERIC_PERM": "0"}, {"LURK_TPU_QUOT": "window"},
+                {"LURK_TPU_QUOT": "mono"})
+# the forced path whose device events phase 15 counts beside the default
+# path's (a profiled proof costs about 40 s of the profiler's processing)
+PROFILED_PATH = {"LURK_TPU_QUOT": "window"}
 MICROCHAIN_STATE = (
     "(letrec ((acc (lambda (total) (lambda (amount) (let ((total (+ total "
     "amount))) (cons total (commit (acc total)))))))) (cons 0 (commit (acc "
@@ -172,9 +198,11 @@ def _perm_bound(counts: dict, width: int, n_perm: int, sms: int,
         (ops_ms, "operations")
 
 
-def _prove_lurk_golden(dev, shard_size, want, machine_queries):
-    """Prove golden.LURK_PROGRAM on the card and hold its sha256 to
-    `want`; returns (seconds, kernel launches, the prove's stats)."""
+def _prove_lurk_golden(dev, shard_size, want, machine_queries,
+                       name: str = "Lurk proof"):
+    """Prove an evaluated Lurk program (machine_queries, from
+    golden.lurk_machine) on the card and hold its sha256 to `want`;
+    returns (seconds, kernel launches, the prove's stats)."""
     from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
     from lurk_tpu_torch.stark import golden
     from lurk_tpu_torch.stark.challenger import Challenger
@@ -187,13 +215,13 @@ def _prove_lurk_golden(dev, shard_size, want, machine_queries):
     launches = permute_mont_cuda.launches
     stats = machine.last_device_prove
     if digest != want:
-        raise AssertionError(f"Lurk proof (shard size {shard_size}) sha256 "
+        raise AssertionError(f"{name} (shard size {shard_size}) sha256 "
                              f"{digest} != golden {want}")
     if not machine.verify(vk, proof, Challenger()):
-        raise AssertionError(f"Lurk proof (shard size {shard_size}) does "
+        raise AssertionError(f"{name} (shard size {shard_size}) does "
                              "not verify")
     if launches <= 0 or stats["device_witness_chips"] <= 0:
-        raise AssertionError(f"Lurk golden: {launches} kernel launches, "
+        raise AssertionError(f"{name}: {launches} kernel launches, "
                              f"{stats['device_witness_chips']} device-made "
                              "witnesses")
     return dt, launches, stats
@@ -203,11 +231,6 @@ def lurk_goldens(dev, on: str) -> None:
     """Phases 8 and 9: the Lurk goldens on `dev` with every chip on the
     device path and device witness on, then device witness == host
     witness for every supported chip."""
-    from lurk_tpu_torch.field import babybear as bb
-    from lurk_tpu_torch.lair import device_trace
-    from lurk_tpu_torch.lair.chips import chip_included
-    from lurk_tpu_torch.lair.execute import Shard, ShardingConfig
-    from lurk_tpu_torch.lair.trace import FuncChip
     from lurk_tpu_torch.stark import golden, hbm
     from lurk_tpu_torch.stark.fri import FriConfig
     os.environ["LURK_TPU_DEVICE_CHIP_MIN_ROWS"] = "0"
@@ -239,6 +262,20 @@ def lurk_goldens(dev, on: str) -> None:
           f"verified, {dt:.3f}s, {n} kernel launches {on}")
 
     # 9. device witness on the card == host witness
+    print(f"device witness on the card == host witness "
+          f"({_witness_parity(dev, machine, q)} chip traces)")
+    del os.environ["LURK_TPU_DEVICE_CHIP_MIN_ROWS"]
+
+
+def _witness_parity(dev, machine, q) -> int:
+    """Every chip of `machine` that lair/device_trace.py supports makes on
+    `dev` the same trace as on the host, in one shard and in the first 3
+    shards at max_shard_size 64; returns the traces compared."""
+    from lurk_tpu_torch.field import babybear as bb
+    from lurk_tpu_torch.lair import device_trace
+    from lurk_tpu_torch.lair.chips import chip_included
+    from lurk_tpu_torch.lair.execute import Shard, ShardingConfig
+    from lurk_tpu_torch.lair.trace import FuncChip
     n_chips = 0
     for size in (None, 64):
         shards = Shard(q, 0, None if size is None
@@ -257,21 +294,147 @@ def lurk_goldens(dev, on: str) -> None:
                                          f"{chip.name} shard {shard.index} "
                                          f"(size {size})")
                 n_chips += 1
-    print(f"device witness on the card == host witness ({n_chips} chip "
-          "traces)")
-    del os.environ["LURK_TPU_DEVICE_CHIP_MIN_ROWS"]
+    return n_chips
+
+
+def compiled_goldens(dev, on: str) -> int:
+    """Phase 14: the compiled pipeline's goldens on the card with device
+    witness and default routing. Returns their kernel launches."""
+    from lurk_tpu_torch.core.stark_machine import PRODUCTION_CONFIG
+    from lurk_tpu_torch.stark import golden, hbm
+    from lurk_tpu_torch.stark.fri import FriConfig
+    total = 0
+    lurk = golden.lurk_machine(golden.LURK_PROGRAM, FriConfig(1, 8, 2),
+                               compiled=True)
+    cli = golden.lurk_machine(golden.CLI_PROGRAM, PRODUCTION_CONFIG,
+                              compiled=True)
+    if lurk[2] != golden.LURK_RESULT or len(lurk[0].chips) != 43:
+        raise AssertionError(f"compiled program evaluated to {lurk[2]} on "
+                             f"{len(lurk[0].chips)} chips")
+    fits = (hbm.keep_rounds_fits, hbm.keep_light_fits)
+    # the small LURK_PROGRAM goldens put every chip on the device path (and
+    # device witness), as phase 8 does; fib(1000) keeps the default routing
+    for label, mq, size, want, shards in (
+            ("LURK_PROGRAM, one shard, every chip on the device path", lurk,
+             None, golden.COMPILED_LURK_SHA256, 1),
+            ("LURK_PROGRAM, 2 shards, keep mode none, every chip on the "
+             "device path", lurk, golden.LURK_2SHARD_SIZE,
+             golden.COMPILED_LURK_2SHARD_SHA256, 2),
+            (f"CLI_PROGRAM = {cli[2]} at PRODUCTION_CONFIG", cli, None,
+             golden.COMPILED_CLI_SHA256, 1)):
+        if mq is lurk:
+            os.environ["LURK_TPU_DEVICE_CHIP_MIN_ROWS"] = "0"
+        if size is not None:
+            hbm.keep_rounds_fits = hbm.keep_light_fits = lambda *a: False
+        try:
+            dt, n, stats = _prove_lurk_golden(dev, size, want, mq[:2],
+                                              f"compiled {label}")
+        finally:
+            hbm.keep_rounds_fits, hbm.keep_light_fits = fits
+            os.environ.pop("LURK_TPU_DEVICE_CHIP_MIN_ROWS", None)
+        if stats["shards"] != shards:
+            raise AssertionError(f"compiled {label} ran {stats}")
+        total += n
+        cells = stats["device_witness_cells"] + stats["host_witness_cells"]
+        print(f"compiled golden {label}: {cells} padded cells, "
+              f"sha256 == lurk_tpu's {want}, verified, {dt:.3f}s, {n} kernel "
+              f"launches, keep mode {stats['keep_mode']}, "
+              f"{stats['device_witness_chips']} device-made witnesses {on}")
+    print(f"compiled machine: device witness on the card == host witness "
+          f"({_witness_parity(dev, lurk[0], lurk[1])} chip traces)")
+    return total
+
+
+def _device_events(prove) -> int:
+    """Device events (kernels and copies) of one prove under
+    torch.profiler, tracing the CUDA activity only (tracing host ops too
+    made the event post-processing take minutes)."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        prove()
+        _sync()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def forced_paths(dev, on: str) -> int:
+    """Phase 15: the direct LURK_PROGRAM golden with every chip on the
+    device path, on the default path and under each of FORCED_PATHS;
+    every proof has GOLDEN_LURK_SHA256. Returns the forced proofs' kernel
+    launches."""
+    from lurk_tpu_torch.stark import golden
+    from lurk_tpu_torch.stark.fri import FriConfig
+    os.environ["LURK_TPU_DEVICE_CHIP_MIN_ROWS"] = "0"
+    mq = golden.lurk_machine(golden.LURK_PROGRAM, FriConfig(1, 8, 2))[:2]
+    total = 0
+    try:
+        for env in ({},) + FORCED_PATHS:
+            os.environ.update(env)
+            try:
+                label = " ".join(f"{k}={v}" for k, v in env.items()) or \
+                    "default paths"
+                dt, n, _ = _prove_lurk_golden(dev, None,
+                                              golden.GOLDEN_LURK_SHA256, mq,
+                                              f"Lurk golden ({label})")
+                events = ""
+                if env in ({}, PROFILED_PATH):
+                    t0 = time.perf_counter()
+                    n_events = _device_events(lambda: golden.lurk_proof(
+                        dev, None, mq))
+                    events = (f", {n_events} device events in a second "
+                              f"proof under torch.profiler "
+                              f"({time.perf_counter() - t0:.3f}s with the "
+                              "profiler's processing)")
+            finally:
+                for k in env:
+                    del os.environ[k]
+            if env:
+                total += n
+            print(f"Lurk golden, every chip on the device path, {label}: "
+                  f"sha256 == GOLDEN_LURK_SHA256, verified, {dt:.3f}s, {n} "
+                  f"kernel launches{events} {on}")
+    finally:
+        del os.environ["LURK_TPU_DEVICE_CHIP_MIN_ROWS"]
+    return total
+
+
+def loam_and_narrow(on: str) -> None:
+    """Phase 17: the loam and narrow copies import without jax here, and
+    loam evaluates fib(5) (tests/test_loam.py's program) to 8n."""
+    from lurk_tpu_torch import loam
+    from lurk_tpu_torch.core.zstore import lurk_zstore
+    from lurk_tpu_torch.poseidon import narrow
+    t0 = time.perf_counter()
+    zstore = lurk_zstore()
+    src = ("(letrec ((fibonacci (lambda (n) (if (< n 2n) 1n "
+           "(+ (fibonacci (- n 2n)) (fibonacci (- n 1n)))))))"
+           " (fibonacci 5n))")
+    inp = loam.WidePtr.from_zptr(zstore.read(src))
+    want = loam.WidePtr.from_zptr(zstore.read("8n"))
+    prog = loam.EvaluationProgram(zstore)
+    prog.set_toplevel_input(inp, None)
+    prog.run()
+    if prog.output_exprs != [want]:
+        raise AssertionError(f"loam fib(5) -> {prog.output_exprs}")
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    print(f"loam fib(5) = 8n in {time.perf_counter() - t0:.3f}s; narrow "
+          f"chip w16 has {narrow.rounds(16)} rounds; no jax imported {on}")
 
 
 def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
-            want_cells: int, want_sha: str) -> int:
-    """Phase 10: evaluate `code`, set up with the key cache in a temporary
-    LURK_DIR, prove it twice (cold, warm) through machine.prove(...,
-    device=True) at FriConfig() and ShardingConfig(shard_size), hold the
-    proof to want_sha and verify it. Returns the warm prove's kernel
+            want_cells: int, want_sha, compiled: bool = False) -> int:
+    """Phases 10 and 16: evaluate `code` with the direct (or compiled)
+    pipeline, set up with the key cache in a temporary LURK_DIR, prove it
+    twice (cold, warm) through machine.prove(..., device=True) at
+    FriConfig() and ShardingConfig(shard_size), hold the result to
+    FIB100K_RESULT and the proof to want_sha (when given; cold and warm
+    always agree) and verify it. Returns the warm prove's kernel
     launches."""
     import torch
+    from lurk_tpu_torch.core import eval_compiled, eval_direct
     from lurk_tpu_torch.core.eval_api import evaluate
-    from lurk_tpu_torch.core.eval_direct import build_lurk_toplevel
     from lurk_tpu_torch.core.stark_machine import new_machine
     from lurk_tpu_torch.lair import native
     from lurk_tpu_torch.lair.execute import Shard, ShardingConfig
@@ -286,7 +449,8 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
     lurk_dir = tempfile.mkdtemp(prefix="lurk_dir_")
     os.environ["LURK_DIR"] = lurk_dir
     try:
-        toplevel, zstore, _ = build_lurk_toplevel()
+        pipeline = eval_compiled if compiled else eval_direct
+        toplevel, zstore, _ = pipeline.build_lurk_toplevel()
         machine = new_machine(toplevel, FriConfig())
         t0 = time.perf_counter()
         result, q = evaluate(toplevel, zstore, code)
@@ -300,13 +464,18 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
     cfg = ShardingConfig(max_shard_size=shard_size)
     cells = machine._trace_cells(q, cfg)
     n_shards = len(Shard(q, 0, cfg).shard())
-    print(f"fib(100000) = {zstore.fmt(result)}: eval {eval_s:.3f}s, setup "
-          f"{setup_s:.3f}s, {n_shards} shards, {cells} padded cells {on}")
+    label = "compiled " if compiled else ""
+    shown = zstore.fmt(result)
+    print(f"{label}fib(100000) = {shown}: {len(machine.chips)} chips, eval "
+          f"{eval_s:.3f}s, setup {setup_s:.3f}s, {n_shards} shards, {cells} "
+          f"padded cells {on}")
+    if shown != FIB100K_RESULT:
+        raise AssertionError(f"fib(100000) evaluated to {shown}")
     if (n_shards, cells) != (want_shards, want_cells):
         raise AssertionError(f"{n_shards} shards / {cells} cells, expected "
                              f"{want_shards} / {want_cells}")
     runs = []
-    for label in ("cold", "warm"):
+    for run in ("cold", "warm"):
         torch.cuda.reset_peak_memory_stats()
         permute_mont_cuda.launches = 0
         t0 = time.perf_counter()
@@ -319,7 +488,7 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
         sha = hashlib.sha256(codec.encode(proof)).hexdigest()
         peak = torch.cuda.max_memory_allocated()
         runs.append((dt, n, sha))
-        print(f"fib(100000) {label} prove: {dt:.3f}s "
+        print(f"{label}fib(100000) {run} prove: {dt:.3f}s "
               f"({cells / dt:.1f} cells/s), witness on the card "
               f"{stats['device_witness_s']:.3f}s for "
               f"{stats['device_witness_chips']} chips / "
@@ -339,17 +508,20 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
         if len(proof.shard_proofs) != want_shards:
             raise AssertionError(f"{len(proof.shard_proofs)} shards")
     if runs[0][2] != runs[1][2]:
-        raise AssertionError("fib(100000): cold and warm proofs differ")
-    if runs[1][2] != want_sha:
+        raise AssertionError(f"{label}fib(100000): cold and warm proofs "
+                             "differ")
+    if want_sha is not None and runs[1][2] != want_sha:
         raise AssertionError(f"fib(100000) proof sha256 {runs[1][2]} != "
                              f"the checked-in proof's {want_sha}")
     t0 = time.perf_counter()
     ok = machine.verify(vk, proof, Challenger())
     vt = time.perf_counter() - t0
     if not ok:
-        raise AssertionError("fib(100000) proof does not verify")
-    print(f"fib(100000): proof sha256 == checked-in proof's {want_sha}, "
-          f"verified in {vt:.3f}s {on}")
+        raise AssertionError(f"{label}fib(100000) proof does not verify")
+    held = "cold == warm" if want_sha is None else \
+        f"== checked-in proof's {want_sha}"
+    print(f"{label}fib(100000): proof sha256 {held}, verified in {vt:.3f}s "
+          f"{on}")
     return runs[1][1]
 
 
@@ -563,6 +735,7 @@ def main() -> int:
     from lurk_tpu_torch.utils import codec
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     # 1. device
     gpu = _gpu_line()
@@ -727,6 +900,23 @@ def main() -> int:
         del os.environ["LURK_DIR"]
         shutil.rmtree(lurk_dir, ignore_errors=True)
 
+    # 14-17. this slice: the compiled pipeline, the forced DAG paths, loam
+    marks = [("phases 1-13", time.perf_counter())]
+    compiled_launches = compiled_goldens(dev, on)
+    marks.append(("phase 14", time.perf_counter()))
+    forced_launches = forced_paths(dev, on)
+    marks.append(("phase 15", time.perf_counter()))
+    compiled_fib_launches = fib100k(dev, on, FIB100K_CODE,
+                                    FIB100K_SHARD_SIZE, FIB100K_SHARDS,
+                                    COMPILED_FIB100K_CELLS, None,
+                                    compiled=True)
+    marks.append(("phase 16", time.perf_counter()))
+    loam_and_narrow(on)
+    marks.append(("phase 17", time.perf_counter()))
+    print("wall seconds: " + ", ".join(
+        f"{label} {t - prev:.1f}" for (label, t), prev in
+        zip(marks, [t_start] + [t for _, t in marks[:-1]])) + f" {on}")
+
     print(json.dumps({"kernels": [{
         "name": "poseidon2_permute",
         "route": "cuda",
@@ -737,7 +927,10 @@ def main() -> int:
                              "lurk_fib100000": fib_launches,
                              "repl_demo_corpus": repl_launches,
                              "cli_load": cli_launches,
-                             "microchain": chain_launches},
+                             "microchain": chain_launches,
+                             "compiled_goldens": compiled_launches,
+                             "forced_dag_paths": forced_launches,
+                             "compiled_fib100000": compiled_fib_launches},
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,

@@ -22,9 +22,10 @@ Ported: mod sums, the device Merkle trees, the committed rounds (LDE +
 tree), the plan-driven LogUp permutation trace, the constraint-VM
 quotient, the openings and FRI, device witness generation for big
 extern-free func chips and the hash3/4/5 chips (lair/device_trace.py),
-and device_prove's `full`, `light` and `none` keep modes. Not ported yet
-(ROADMAP.md): the per-chip DAG perm path, the windowed and monolithic
-quotient and the row-sharded mesh commit.
+device_prove's `full`, `light` and `none` keep modes, and the per-chip
+DAG paths (a chip with non-affine interactions, LURK_TPU_GENERIC_PERM=0,
+LURK_TPU_QUOT=window|mono). Not ported yet (ROADMAP.md): the row-sharded
+mesh commit, which needs parallel/.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..air.symbolic import Add, Col, Const, Mul, Pub, Sel, Sub
 from ..field import babybear as bb
 from ..field import ext as ext_t
 from ..field.ntt import GENERATOR, coset_eval, device_ntt
@@ -541,6 +543,157 @@ def device_perm_trace_plan(plan, main_dev, prep_dev, pv, r, gamma):
 
 
 # ---------------------------------------------------------------------------
+# symbolic-DAG evaluation on the device: the per-chip paths, taken by a
+# chip whose interactions are not affine (plan_for is None), under
+# LURK_TPU_GENERIC_PERM=0 and under LURK_TPU_QUOT=window|mono
+# ---------------------------------------------------------------------------
+
+class DeviceEvalCtx:
+    """Vectorised base-field evaluation of a chip's symbolic DAG
+    (air/symbolic.py) over a device domain, canonical int64, memoised per
+    node: `value(e)` is an (height,) tensor, or a Python int for a node
+    that meets no column (a Const or Pub, or one made of them).
+
+    sels: kind -> (rows,) canonical tensors. With window=True the inputs
+    carry `stride` extra rows and a rot=1 column is a slice of the window
+    instead of a roll of the whole domain (see _window)."""
+
+    def __init__(self, main, preprocessed, public_values, sels,
+                 stride: int = 1, window: bool = False):
+        self.mats = {"main": main, "preprocessed": preprocessed}
+        self.pv = [int(v) % P for v in (public_values or [])]
+        self.sels = sels
+        self.stride = stride
+        self.window = window
+        self.height = int(main.shape[0]) - (stride if window else 0)
+        self.device = main.device
+        self._cache: Dict[int, object] = {}
+
+    def _col(self, e):
+        col = self.mats[e.matrix][:, e.idx].to(I64)
+        h, s = self.height, self.stride
+        if self.window:
+            return col[:h] if e.rot == 0 else col[s:s + h]
+        return col if e.rot == 0 else torch.roll(col, -s, dims=0)
+
+    def value(self, e):
+        key = id(e)
+        v = self._cache.get(key)
+        if v is not None:
+            return v
+        if isinstance(e, Const):
+            v = e.val % P
+        elif isinstance(e, Col):
+            v = self._col(e)
+        elif isinstance(e, Pub):
+            v = self.pv[e.idx]
+        elif isinstance(e, Sel):
+            v = self.sels[e.kind].to(I64)
+        elif isinstance(e, Add):
+            v = (self.value(e.a) + self.value(e.b)) % P
+        elif isinstance(e, Sub):
+            v = (self.value(e.a) - self.value(e.b)) % P
+        elif isinstance(e, Mul):
+            v = self.value(e.a) * self.value(e.b) % P
+        else:
+            raise TypeError(e)
+        self._cache[key] = v
+        return v
+
+
+def _as_col(v):
+    """A base value (int or (rows,) tensor) shaped to scale (rows, 4)."""
+    return v[:, None] if isinstance(v, torch.Tensor) else v
+
+
+def _d_signed_mult(inter, ctx: DeviceEvalCtx):
+    m = ctx.value(inter.mult)
+    return (-m) % P if inter.kind == "receive" else m
+
+
+def _d_fingerprint(inter, ctx: DeviceEvalCtx, r_dev, gpows):
+    """(rows, 4) int64 ext fingerprint d = r + sum_j gamma^(j+1) v_j."""
+    d = r_dev
+    for j, v in enumerate(inter.values):
+        d = (d + gpows[j + 1] * _as_col(ctx.value(v)) % P) % P
+    return d.expand(ctx.height, 4)
+
+
+def gamma_pows_dev(gamma, count: int, device) -> torch.Tensor:
+    """(count+1, 4) canonical int64 powers of gamma."""
+    from ..logup.trace import gamma_powers
+    return torch.tensor(gamma_powers(gamma, count), dtype=I64, device=device)
+
+
+def _max_values(builder) -> int:
+    return max((len(i.values) for i in builder.interactions), default=0)
+
+
+# rows per DAG perm-trace block: bounds the (n_inter, rows, 4) fingerprint
+# and inverse transients
+_PERM_CHUNK = 1 << 17
+
+
+def _dag_phis(batches, ctx: DeviceEvalCtx, r_dev, gpows):
+    """(rows, 4B) int64 batch contributions: every interaction's
+    multiplicity and fingerprint, one batched inverse over all of them,
+    then the multiplicity-weighted sum per batch."""
+    ms, ds = [], []
+    for batch in batches:
+        for inter in batch:
+            ms.append(_d_signed_mult(inter, ctx))
+            ds.append(_d_fingerprint(inter, ctx, r_dev, gpows))
+    d_invs = ext_t.einv(torch.stack(ds)).to(I64)              # (n, rows, 4)
+    cols = []
+    k = 0
+    for batch in batches:
+        phi = 0
+        for _ in batch:
+            phi = (phi + d_invs[k] * _as_col(ms[k]) % P) % P
+            k += 1
+        cols.append(phi)
+    return torch.cat(cols, dim=1)
+
+
+def device_perm_trace_dev(builder, main_dev, prep_dev, pv, r, gamma):
+    """Per-chip LogUp permutation trace from the interaction DAG: returns
+    (perm trace (h, 4(B+1)) int32, cumulative sum (4,)), device-resident.
+    Mirrors logup.trace.build_permutation_trace bit-exactly. Interactions
+    read only local columns, so row blocks are independent."""
+    from ..logup.trace import interaction_batches
+    h = int(main_dev.shape[0])
+    device = main_dev.device
+    batches = interaction_batches(builder)
+    if not batches:
+        # the all-zero running-sum column of an interaction-free chip
+        s = torch.zeros((h, 4), dtype=I32, device=device)
+        return s, s[-1]
+    gpows = gamma_pows_dev(gamma, _max_values(builder), device)
+    r_dev = ext_scalar_dev(r, device)
+    x = _x_extras(h, device)
+    rows = min(h, _PERM_CHUNK)
+    blocks = []
+    for c0 in range(0, h, rows):
+        sl = slice(c0, c0 + rows)
+        sels = {"first": x[sl, 0], "last": x[sl, 1], "transition": x[sl, 2]}
+        ctx = DeviceEvalCtx(main_dev[sl], None if prep_dev is None
+                            else prep_dev[sl], pv, sels)
+        blocks.append(_dag_phis(batches, ctx, r_dev, gpows))
+    phis = torch.cat(blocks, dim=0) if len(blocks) > 1 else blocks[0]
+    total = mod_tree_sum(phis.reshape(h, len(batches), 4), dim=1)
+    s = mod_cumsum(total, dim=0)
+    return torch.cat([phis.to(I32), s], dim=1), s[-1]
+
+
+def device_perm_trace(builder, main_dev, prep_dev, pv, r, gamma):
+    """device_perm_trace_dev with the cumulative sum downloaded to a host
+    tuple (the shard prover batches these transfers instead)."""
+    trace, s_last = device_perm_trace_dev(builder, main_dev, prep_dev, pv,
+                                          r, gamma)
+    return trace, tuple(int(x) for x in bb.to_numpy(s_last))
+
+
+# ---------------------------------------------------------------------------
 # VM quotient (mirrors machine.host_quotient_chunk): the chip's constraint
 # DAG runs as register bytecode (stark/constraint_vm.py) over the LDE
 # columns; the LogUp perm-quotient runs from the affine plan.
@@ -705,16 +858,183 @@ def device_quotient_chunk_vm(builder, main_lde, prep_lde, perm_lde,
     return _quotient_epilogue(folded, tabs, log_h)
 
 
+# ---------------------------------------------------------------------------
+# DAG quotient: the chip's constraint DAG and its interactions evaluated
+# directly (DeviceEvalCtx), over fixed-size row windows (windowed) or over
+# the whole LDE at once (monolithic); both end in _quotient_epilogue
+# ---------------------------------------------------------------------------
+
+_EXT_ONE = (1, 0, 0, 0)
+
+
+def _d_perm_quotient(builder, ctx: DeviceEvalCtx, perm_lde, r_dev, gpows,
+                     cum_dev):
+    """The LogUp perm-quotient's ext constraint values over ctx's rows
+    from the interaction DAG (mirrors logup.constraints.
+    eval_perm_quotient_np): each batch's lhs - rhs, then the first,
+    transition and last running-sum constraints. perm_lde is windowed or
+    whole as ctx's columns are. Returns a list of (rows, 4) int64
+    tensors."""
+    from ..logup.trace import interaction_batches
+    h, stride = ctx.height, ctx.stride
+    batches = interaction_batches(builder)
+    nb = len(batches)
+    perm = perm_lde.to(I64)
+
+    def rows(block, rot=0):
+        if ctx.window:
+            return block[:h] if rot == 0 else block[stride:stride + h]
+        return block if rot == 0 else torch.roll(block, -stride, dims=0)
+
+    one = ext_scalar_dev(_EXT_ONE, ctx.device)
+    out = []
+    for b, batch in enumerate(batches):
+        ms = [_d_signed_mult(i, ctx) for i in batch]
+        ds = [_d_fingerprint(i, ctx, r_dev, gpows) for i in batch]
+        lhs = rows(perm[:, 4 * b:4 * b + 4])
+        for d in ds:
+            lhs = ext_t.emul(lhs, d).to(I64)
+        rhs = 0
+        for i, m in enumerate(ms):
+            others = ds[:i] + ds[i + 1:]
+            term = others[0] if others else one
+            for d in others[1:]:
+                term = ext_t.emul(term, d).to(I64)
+            rhs = (rhs + term * _as_col(m) % P) % P
+        out.append((lhs - rhs) % P)
+
+    total_phi = 0
+    total_phi_next = 0
+    for b in range(nb):
+        block = perm[:, 4 * b:4 * b + 4]
+        total_phi = (total_phi + rows(block)) % P
+        total_phi_next = (total_phi_next + rows(block, 1)) % P
+    s_col = rows(perm[:, 4 * nb:4 * nb + 4])
+    s_next = rows(perm[:, 4 * nb:4 * nb + 4], 1)
+    first, last, trans = (ctx.sels[k].to(I64)[:, None]
+                          for k in ("first", "last", "transition"))
+    out.append(first * ((s_col - total_phi) % P) % P)
+    out.append(trans * ((s_next - s_col - total_phi_next) % P) % P)
+    out.append(last * ((s_col - cum_dev) % P) % P)
+    return out
+
+
+def _dag_folded(builder, ctx: DeviceEvalCtx, perm_lde, r_dev, gpows,
+                cum_dev, weights):
+    """(rows, 4) int64 alpha-fold of the chip's constraints and its
+    perm-quotient constraints, with canonical ext weights (n_total, 4) in
+    evaluation order (constraint i scaled by alpha^(n_total-1-i))."""
+    folded = torch.zeros((ctx.height, 4), dtype=I64, device=ctx.device)
+    for i, c in enumerate(builder.constraints):
+        folded = (folded + weights[i] * _as_col(ctx.value(c)) % P) % P
+    n_base = len(builder.constraints)
+    for k, v in enumerate(_d_perm_quotient(builder, ctx, perm_lde, r_dev,
+                                           gpows, cum_dev)):
+        folded = (folded + ext_mul_scalar(v, weights[n_base + k])) % P
+    return folded
+
+
+def _dag_inputs(builder, pv, r, gamma, alpha, cum, device):
+    """(r, gamma powers, cumulative sum, fold weights) on device, all
+    canonical int64."""
+    from ..logup.trace import interaction_batches
+    n_total = len(builder.constraints) + len(interaction_batches(builder)) + 3
+    apows = host_pcs.ext_powers(alpha, n_total)
+    weights = torch.from_numpy(
+        np.ascontiguousarray(apows[::-1]).astype(np.int64)).to(device)
+    return (ext_scalar_dev(r, device),
+            gamma_pows_dev(gamma, _max_values(builder), device),
+            ext_scalar_dev(cum, device), weights)
+
+
+# window rows (a power of two) of the windowed quotient
+_QUOT_WIN = 1 << 15
+
+
+def _window(mat, c0: int, rows: int, stride: int, big: int):
+    """Rows (c0 + i) % big for i in [0, rows + stride): the periodic
+    extension makes rot=1 slices exact for every real row (including the
+    wraparound at big - 1) and fills rows past a small domain with repeats
+    that the caller slices off."""
+    total = rows + stride
+    if big <= total:
+        reps = (total + big - 1) // big
+        tiled = mat.repeat((reps,) + (1,) * (mat.dim() - 1))
+        return tiled[:total] if c0 == 0 else \
+            torch.cat([tiled[c0:], tiled[:c0]], dim=0)[:total]
+    parts = []
+    p = c0
+    left = total
+    while left > 0:
+        t = min(left, big - p)
+        parts.append(mat[p:p + t])
+        left -= t
+        p = (p + t) % big
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
+def device_quotient_chunk_windowed(builder, main_lde, prep_lde, perm_lde,
+                                   pv, r, gamma, alpha, cum, log_h: int):
+    """(h, 8) quotient chunk from the chip's DAG, evaluated over windows of
+    _QUOT_WIN rows plus `stride` overlap rows, so rot=1 columns are slices
+    and the transients are bounded by the window."""
+    device = main_lde.device
+    r_dev, gpows, cum_dev, weights = _dag_inputs(builder, pv, r, gamma,
+                                                 alpha, cum, device)
+    tabs = _coset_tables(log_h, device)
+    big = 1 << (log_h + LOG_BLOWUP)
+    stride = 1 << LOG_BLOWUP
+    rows = _QUOT_WIN
+    parts = []
+    for c0 in range(0, big, rows):
+        win = lambda m, s=stride: _window(m, c0, rows, s, big)
+        sels = {k: win(v, 0) for k, v in tabs["sels"].items()}
+        ctx = DeviceEvalCtx(win(main_lde), None if prep_lde is None
+                            else win(prep_lde), pv, sels, stride=stride,
+                            window=True)
+        parts.append(_dag_folded(builder, ctx, win(perm_lde), r_dev, gpows,
+                                 cum_dev, weights))
+    folded = torch.cat(parts, dim=0) if len(parts) > 1 else parts[0]
+    return _quotient_epilogue(folded[:big], tabs, log_h)
+
+
+def _device_quotient_chunk_mono(builder, main_lde, prep_lde, perm_lde, pv,
+                                r, gamma, alpha, cum, log_h: int):
+    """(h, 8) quotient chunk from the chip's DAG over the whole LDE at
+    once (rot=1 columns rolled): about 32 bytes per live node per LDE
+    row, so meant for small chips."""
+    device = main_lde.device
+    r_dev, gpows, cum_dev, weights = _dag_inputs(builder, pv, r, gamma,
+                                                 alpha, cum, device)
+    tabs = _coset_tables(log_h, device)
+    ctx = DeviceEvalCtx(main_lde, prep_lde, pv, tabs["sels"],
+                        stride=1 << LOG_BLOWUP)
+    folded = _dag_folded(builder, ctx, perm_lde, r_dev, gpows, cum_dev,
+                         weights)
+    return _quotient_epilogue(folded, tabs, log_h)
+
+
 def device_quotient_chunk(builder, main_lde, prep_lde, perm_lde, pv,
                           r, gamma, alpha, cum, log_h: int):
-    """(h, 8) quotient chunk matrix, bit-exact vs the host prover. Only
-    lurk_tpu's default `vm` path is ported."""
-    if plan_for(builder) is None:
-        raise NotImplementedError(
-            "non-affine interactions need the per-chip DAG quotient, "
-            "which is not ported")
-    return device_quotient_chunk_vm(builder, main_lde, prep_lde, perm_lde,
-                                    pv, r, gamma, alpha, cum, log_h)
+    """(h, 8) quotient chunk matrix, bit-exact vs the host prover.
+
+    Paths, all bit-exact:
+      LURK_TPU_QUOT=vm (default): the constraint VM + the perm plan where
+        the chip has a plan, else the windowed DAG path;
+      LURK_TPU_QUOT=window: the windowed DAG path for every chip;
+      LURK_TPU_QUOT=mono: the monolithic DAG path for every chip."""
+    mode = _os.environ.get("LURK_TPU_QUOT", "vm")
+    if mode == "vm" and plan_for(builder) is not None:
+        return device_quotient_chunk_vm(builder, main_lde, prep_lde,
+                                        perm_lde, pv, r, gamma, alpha, cum,
+                                        log_h)
+    if mode in ("vm", "window"):
+        return device_quotient_chunk_windowed(builder, main_lde, prep_lde,
+                                              perm_lde, pv, r, gamma, alpha,
+                                              cum, log_h)
+    return _device_quotient_chunk_mono(builder, main_lde, prep_lde,
+                                       perm_lde, pv, r, gamma, alpha, cum,
+                                       log_h)
 
 
 # ---------------------------------------------------------------------------
@@ -1258,6 +1578,12 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
     return MachineProof(shard_proofs, list(pv))
 
 
+def _generic_perm_enabled() -> bool:
+    """The plan-driven perm trace is the default; LURK_TPU_GENERIC_PERM=0
+    forces the per-chip DAG path (both are bit-exact vs the host)."""
+    return _os.environ.get("LURK_TPU_GENERIC_PERM", "1") != "0"
+
+
 def _device_witness_enabled(device: torch.device) -> bool:
     """Device-resident witness generation for big extern-free func chips
     and the hash3/4/5 chips (lair/device_trace.py). On by default when the
@@ -1339,19 +1665,13 @@ def _device_prove_shard(machine, pk, prep_round, prep_names, shard, chips,
         if has_prep:
             pidx = prep_names.index(chip.name)
             prep_dev = prep_round.matrices[pidx]
-        h = int(main_dev.shape[0])
-        if not builder.interactions:
-            # the all-zero running-sum column of an interaction-free chip
-            perm = torch.zeros((h, 4), dtype=I32, device=device)
-            cum_dev = perm[-1]
-        else:
-            plan = plan_for(builder)
-            if plan is None:
-                raise NotImplementedError(
-                    f"chip {chip.name}: non-affine interactions need the "
-                    "per-chip DAG perm path, which is not ported")
+        plan = plan_for(builder) if _generic_perm_enabled() else None
+        if plan is not None and builder.interactions:
             perm, cum_dev = device_perm_trace_plan(plan, main_dev, prep_dev,
                                                    pv, r, gamma)
+        else:
+            perm, cum_dev = device_perm_trace_dev(builder, main_dev,
+                                                  prep_dev, pv, r, gamma)
         perm_mats.append(perm)
         cum_slots[i] = len(cum_devs)
         cum_devs.append(cum_dev)

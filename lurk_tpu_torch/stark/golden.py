@@ -20,6 +20,11 @@ CLI_PROGRAM, a program past 2^22 padded cells. Both are lurk_tpu's host
 proofs, computed by scripts/repl_goldens.py; chip_smoke.py holds the card
 to them.
 
+The compiled goldens (COMPILED_*) are the same statements evaluated by the
+compiled pipeline (core/eval_compiled.py) and proved on its 43-chip
+machine: lurk_tpu's host proofs, computed by scripts/compiled_goldens.py
+(lurk_machine(..., compiled=True) builds the machine).
+
 Every entry point proves on `device`; with no device it is CUDA, and it
 raises when there is no card.
 """
@@ -94,6 +99,18 @@ CLI_PROOF_KEY = \
 CLI_PROOF_SHA256 = \
     "b35006b09d90a4db4de6eec6c12ba84215171138b705490145a8183a81597f05"
 
+# The compiled pipeline (core/eval_compiled.py, 43 chips): lurk_tpu's host
+# proofs of LURK_PROGRAM at FriConfig(1, 8, 2) in one shard (1,008,421
+# padded main cells) and in two at ShardingConfig(LURK_2SHARD_SIZE), and
+# of CLI_PROGRAM at PRODUCTION_CONFIG in one shard (3,163,088 cells),
+# from scripts/compiled_goldens.py
+COMPILED_LURK_SHA256 = \
+    "475a379f4ba17b0a808e6a9122117f788dff4b1b165392252b7c5699c672e2ba"
+COMPILED_LURK_2SHARD_SHA256 = \
+    "e362ea16d5d40e6f238098d11528c84967b613e0132c27d40428968b4d87fda7"
+COMPILED_CLI_SHA256 = \
+    "594a128e1b45d62cdc356e4fc9c5a393c654f8a2070a0b2c9bb392eb83922727"
+
 
 def fib_machine(n: int, config):
     """(machine, queries) for demo `fib` at n, as bench.py builds them."""
@@ -128,13 +145,16 @@ def fib_proof(device=None):
     return _proved(machine, pk, vk, q, device)
 
 
-def lurk_machine(code: str, config):
+def lurk_machine(code: str, config, compiled: bool = False):
     """(machine, queries, printed result) of a Lurk program evaluated by
-    the native interpreter, on the full Lurk machine at `config`."""
+    the native interpreter, on the full Lurk machine at `config`: the
+    direct pipeline's (47 chips) or, with compiled=True, the compiled
+    pipeline's (43 chips)."""
+    from ..core import eval_compiled, eval_direct
     from ..core.eval_api import evaluate
-    from ..core.eval_direct import build_lurk_toplevel
     from ..core.stark_machine import new_machine
-    toplevel, zstore, _ = build_lurk_toplevel()
+    pipeline = eval_compiled if compiled else eval_direct
+    toplevel, zstore, _ = pipeline.build_lurk_toplevel()
     result, queries = evaluate(toplevel, zstore, code)
     return new_machine(toplevel, config), queries, zstore.fmt(result)
 

@@ -93,7 +93,10 @@ core/symbol.py core/state.py core/lang.py core/parser.py core/zstore.py
 core/misc.py core/ingress.py core/chipset.py core/eval_direct.py
 core/eval_api.py core/stark_machine.py cli/data.py stark/key_cache.py
 cli/meta.py cli/debug.py cli/microchain.py cli/ocaml.py ocaml/__init__.py
-ocaml/syntax.py ocaml/parser.py ocaml/compile.py""".split()
+ocaml/syntax.py ocaml/parser.py ocaml/compile.py core/compile.py
+core/eval_compiled.py loam/__init__.py loam/allocation.py loam/engine.py
+loam/evaluation.py loam/map_double.py loam/memory.py loam/types.py
+poseidon/narrow.py""".split()
 
 # StarkMachine.prove's routing: lurk_tpu's device=None picks the host
 # prover under 2^22 padded cells or without an accelerator; the port's is
