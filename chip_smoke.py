@@ -62,7 +62,28 @@ Phases (each raises on failure; nothing is caught):
      218,659,792 padded cells, cold and warm; the result equals the direct
      pipeline's and the proof verifies;
  17. loam and narrow: the copies import without jax and a loam evaluation
-     of fib(5) gives 8n.
+     of fib(5) gives 8n;
+ 18. mesh blocks: over 4 slots on cuda:0 (and over every card when there
+     are two or more), sharded_permute of w16 x 2^21 states equals
+     permute_mont_cuda, sharded_leaf_hash of (2^22, 16) equals
+     hasher.hash_rows, sharded_logup_sum and sharded_commit_step equal
+     their single-device results, mesh_ntt / mesh_intt at 2^21 x 8 equal
+     field/ntt.py's device_ntt and round-trip; with a second card, a
+     launch there leaves torch.cuda.current_device() unchanged;
+ 19. mesh_prove: phase 10's fib(100000) machine, keys and queries proved
+     by parallel/shard_prover.mesh_prove over 2 slots on cuda:0 (4 shards,
+     so each slot recommits its shards), byte-identical to the checked-in
+     proof, verified, mesh_cumulative_balance == (0, 0, 0, 0);
+ 20. the mesh commit: the same prove through machine.prove(...,
+     device=True) with LURK_TPU_MESH_DEVICES naming 4 slots on cuda:0,
+     LURK_TPU_MESH_COMMIT=1 and a budget under every shard's largest
+     group, so each shard's big groups take parallel/ntt_mesh.mesh_lde;
+     byte-identical to the checked-in proof;
+ 21. multi-process: two child processes (no jax) join over gloo on
+     127.0.0.1 through parallel/multihost.initialize, both on cuda:0; each
+     runs multihost_prove(..., device=True) of fib(100000) in 4 shards,
+     proving shards p and p + 2, and returns the full proof, byte-identical
+     to the checked-in proof.
 
 Prints the kernels' JSON line, then the device line last. Every time is
 printed beside the card's name and power limit.
@@ -103,6 +124,47 @@ MICROCHAIN_STATE = (
     "amount))) (cons total (commit (acc total)))))))) (cons 0 (commit (acc "
     "0))))")
 FIB100K_ARTIFACT = ROOT / "benches" / "artifacts" / "fib100k_4shard_proof.bin.gz"
+# phase 20's mesh-commit budget in LDE cells: under the largest group of
+# every fib(100000) shard (40,894,464 LDE cells in shards 2 and 3)
+MESH_COMMIT_CELLS = 1 << 25
+# phase 21's child: joins the gloo group, evaluates fib(100000), proves its
+# shards on cuda:0 with multihost_prove and prints one JSON line
+MULTIHOST_CHILD = r'''
+import hashlib, json, sys, time
+import torch
+from lurk_tpu_torch.core.eval_api import evaluate
+from lurk_tpu_torch.core.eval_direct import build_lurk_toplevel
+from lurk_tpu_torch.core.stark_machine import new_machine
+from lurk_tpu_torch.lair.execute import ShardingConfig
+from lurk_tpu_torch.parallel import multihost
+from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
+from lurk_tpu_torch.stark.challenger import Challenger
+from lurk_tpu_torch.stark.fri import FriConfig
+from lurk_tpu_torch.utils import codec
+
+pid, nproc, port, code, shard_size = sys.argv[1:6]
+multihost.initialize(f"127.0.0.1:{port}", int(nproc), int(pid))
+toplevel, zstore, _ = build_lurk_toplevel()
+_, q = evaluate(toplevel, zstore, code)
+machine = new_machine(toplevel, FriConfig())
+pk, vk = machine.setup()
+t0 = time.perf_counter()
+proof = multihost.multihost_prove(machine, pk, q, Challenger(),
+                                  ShardingConfig(int(shard_size)),
+                                  device=True)
+torch.cuda.synchronize()
+dt = time.perf_counter() - t0
+launches = permute_mont_cuda.launches
+if not machine.verify(vk, proof, Challenger()):
+    raise AssertionError("the proof does not verify")
+if "jax" in sys.modules:
+    raise AssertionError("jax was imported")
+torch.distributed.destroy_process_group()
+print(json.dumps({"pid": int(pid), "s": dt, "launches": launches,
+                  "peak": torch.cuda.max_memory_allocated(),
+                  "shards": len(proof.shard_proofs),
+                  "sha256": hashlib.sha256(codec.encode(proof)).hexdigest()}))
+'''
 # H100 SXM data sheet: HBM3 at 3.35 TB/s
 HBM_BYTES_PER_S = 3.35e12
 
@@ -431,7 +493,7 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
     FriConfig() and ShardingConfig(shard_size), hold the result to
     FIB100K_RESULT and the proof to want_sha (when given; cold and warm
     always agree) and verify it. Returns the warm prove's kernel
-    launches."""
+    launches and (machine, pk, vk, queries, sharding config)."""
     import torch
     from lurk_tpu_torch.core import eval_compiled, eval_direct
     from lurk_tpu_torch.core.eval_api import evaluate
@@ -522,7 +584,7 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
         f"== checked-in proof's {want_sha}"
     print(f"{label}fib(100000): proof sha256 {held}, verified in {vt:.3f}s "
           f"{on}")
-    return runs[1][1]
+    return runs[1][1], (machine, pk, vk, q, cfg)
 
 
 def _proofs(lurk_dir: Path) -> set:
@@ -718,6 +780,252 @@ def microchain_round_trip(on: str, repl) -> int:
     return launches
 
 
+def _wall_ms(fn, reps: int = 1) -> float:
+    """Mean host-clock milliseconds of fn() over reps runs, each ending in
+    a synchronize of every card, after one warm-up run (the mesh paths
+    span several devices, which one device's CUDA events do not)."""
+    import torch
+    fn()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def mesh_blocks(dev, on: str, rng) -> int:
+    """Phase 18: the mesh blocks over 4 slots on `dev` (and over every card
+    when there are two or more) against their single-device results.
+    Returns the kernel launches of the sharded calls."""
+    import torch
+    from lurk_tpu_torch.field import babybear as bb
+    from lurk_tpu_torch.field.ntt import device_ntt, intt
+    from lurk_tpu_torch.parallel import mesh as pmesh
+    from lurk_tpu_torch.parallel.ntt_mesh import mesh_intt, mesh_ntt
+    from lurk_tpu_torch.poseidon.cuda_kernel import permute_cuda, \
+        permute_mont_cuda
+    from lurk_tpu_torch.stark import hasher
+    from lurk_tpu_torch.stark.device_prover import mod_tree_sum
+
+    def rand(shape):
+        return torch.from_numpy(rng.integers(0, bb.P, shape)
+                                .astype(np.int32)).to(dev)
+
+    states, mat = rand((1 << 21, 16)), rand((1 << 22, 16))
+    phi, x = rand((1 << 22, 4)), rand((1 << 21, 8))
+    want_perm = permute_cuda(states)
+    want_hash = hasher.hash_rows(mat)
+    want_fwd = device_ntt(x, 21, False).to(bb.I32)
+    want_inv = intt(x)
+    meshes = [(f"4 slots on {dev}", pmesh.Mesh([dev] * 4, ("shard",)))]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        meshes.append((f"{n_cards} cards", pmesh.make_mesh()))
+        current = torch.cuda.current_device()
+        other = torch.device("cuda", (current + 1) % n_cards)
+        permute_mont_cuda(bb.to_mont(states[:1024].to(other).T).contiguous())
+        torch.cuda.synchronize(other)
+        if torch.cuda.current_device() != current:
+            raise AssertionError("a launch on another card changed the "
+                                 "current device")
+        print(f"a launch on {other} left the current device cuda:{current}")
+    launches = 0
+    for label, mesh in meshes:
+        checks = (
+            ("sharded_permute w16 x 2^21",
+             lambda: pmesh.sharded_permute(mesh, states), want_perm,
+             lambda: permute_cuda(states)),
+            ("sharded_leaf_hash (2^22, 16)",
+             lambda: pmesh.sharded_leaf_hash(mesh, mat), want_hash,
+             lambda: hasher.hash_rows(mat)),
+            ("sharded_logup_sum (2^22, 4)",
+             lambda: pmesh.sharded_logup_sum(mesh, phi),
+             mod_tree_sum(phi, dim=0), lambda: mod_tree_sum(phi, dim=0)),
+            ("sharded_commit_step (2^22, 16)",
+             lambda: pmesh.sharded_commit_step(mesh, mat)[0], want_hash,
+             None),
+            ("mesh_ntt 2^21 x 8", lambda: mesh_ntt(mesh, x), want_fwd,
+             lambda: device_ntt(x, 21, False)),
+            ("mesh_intt 2^21 x 8", lambda: mesh_intt(mesh, x), want_inv,
+             lambda: intt(x)))
+        # the count covers the sharded calls only: each block's check run,
+        # warm-up and timed run, the commit-step sum and the NTT round
+        # trip; the one-device timings run after it is read
+        permute_mont_cuda.launches = 0
+        mesh_ms = []
+        for name, run, want, _ in checks:
+            if not torch.equal(run(), want):
+                raise AssertionError(f"{name} over {label} != one device")
+            mesh_ms.append(_wall_ms(run))
+        total = pmesh.sharded_commit_step(mesh, mat)[1]
+        if not torch.equal(total, mod_tree_sum(want_hash[:, :4], dim=0)):
+            raise AssertionError(f"sharded_commit_step sum over {label}")
+        if not torch.equal(mesh_intt(mesh, mesh_ntt(mesh, x)), x):
+            raise AssertionError(f"mesh NTT round trip over {label}")
+        n = permute_mont_cuda.launches
+        launches += n
+        for (name, _, _, single), ms in zip(checks, mesh_ms):
+            times = f"{ms:.3f} ms"
+            if single is not None:
+                times += f" (one device {_wall_ms(single):.3f} ms)"
+            print(f"{name} over {label} == one device: {times} {on}")
+        print(f"mesh blocks over {label}: {n} kernel launches in the "
+              f"sharded calls {on}")
+    return launches
+
+
+def mesh_prove_fib100k(dev, on: str, mqs, want_sha: str) -> int:
+    """Phase 19: mesh_prove of phase 10's fib(100000) over 2 slots on
+    `dev`. Returns its kernel launches."""
+    import torch
+    from lurk_tpu_torch.parallel import mesh as pmesh
+    from lurk_tpu_torch.parallel.shard_prover import (
+        mesh_cumulative_balance, mesh_prove)
+    from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
+    from lurk_tpu_torch.stark.challenger import Challenger
+    from lurk_tpu_torch.utils import codec
+    machine, pk, vk, q, cfg = mqs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    permute_mont_cuda.launches = 0
+    t0 = time.perf_counter()
+    proof = mesh_prove(machine, pk, q, Challenger(), devices=[dev, dev],
+                       shard_config=cfg)
+    _sync()
+    dt = time.perf_counter() - t0
+    launches = permute_mont_cuda.launches
+    sha = hashlib.sha256(codec.encode(proof)).hexdigest()
+    if sha != want_sha:
+        raise AssertionError(f"mesh_prove fib(100000) sha256 {sha} != the "
+                             f"checked-in proof's {want_sha}")
+    if not machine.verify(vk, proof, Challenger()):
+        raise AssertionError("mesh_prove fib(100000) does not verify")
+    balance = mesh_cumulative_balance(pmesh.Mesh([dev, dev], ("shard",)),
+                                      proof.shard_proofs)
+    if balance != (0, 0, 0, 0) or launches <= 0:
+        raise AssertionError(f"mesh_prove: balance {balance}, {launches} "
+                             "kernel launches")
+    print(f"mesh_prove fib(100000), {len(proof.shard_proofs)} shards over 2 "
+          f"slots on {dev}: {dt:.3f}s, {launches} kernel launches, peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB, balance 0, == checked-in proof's {sha}, verified {on}")
+    return launches
+
+
+def mesh_commit_fib100k(dev, on: str, mqs, want_sha: str) -> int:
+    """Phase 20: machine.prove(..., device=True) of phase 10's fib(100000)
+    with the mesh commit over 4 slots on `dev`. Returns its kernel
+    launches."""
+    import torch
+    from lurk_tpu_torch.parallel import ntt_mesh
+    from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
+    from lurk_tpu_torch.stark import device_prover
+    from lurk_tpu_torch.stark.challenger import Challenger
+    from lurk_tpu_torch.utils import codec
+    machine, pk, vk, q, cfg = mqs
+    env = {"LURK_TPU_MESH_DEVICES": ",".join([str(dev)] * 4),
+           "LURK_TPU_MESH_COMMIT": "1",
+           "LURK_TPU_MESH_COMMIT_CELLS": str(MESH_COMMIT_CELLS)}
+    # groups through mesh_lde in each shard's main commit: pass 1 commits
+    # every shard's main traces in shard order, the only dcommit calls
+    # with finalize=False
+    real_dcommit = device_prover.dcommit
+    main_routed = []
+
+    def counting_dcommit(matrices, device=None, finalize=True):
+        c0 = ntt_mesh.mesh_lde.calls
+        rnd = real_dcommit(matrices, device, finalize)
+        if not finalize:
+            main_routed.append(ntt_mesh.mesh_lde.calls - c0)
+        return rnd
+
+    os.environ.update(env)
+    device_prover.dcommit = counting_dcommit
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        permute_mont_cuda.launches = 0
+        calls = ntt_mesh.mesh_lde.calls
+        t0 = time.perf_counter()
+        proof = machine.prove(pk, q, Challenger(), shard_config=cfg,
+                              device=True)
+        _sync()
+        dt = time.perf_counter() - t0
+        launches = permute_mont_cuda.launches
+        routed = ntt_mesh.mesh_lde.calls - calls
+    finally:
+        device_prover.dcommit = real_dcommit
+        for k in env:
+            del os.environ[k]
+    sha = hashlib.sha256(codec.encode(proof)).hexdigest()
+    shards = len(proof.shard_proofs)
+    if sha != want_sha:
+        raise AssertionError(f"mesh-commit fib(100000) sha256 {sha} != the "
+                             f"checked-in proof's {want_sha}")
+    if len(main_routed) != shards or min(main_routed) < 1 or launches <= 0:
+        raise AssertionError(f"mesh commit: groups through mesh_lde by "
+                             f"shard's main commit {main_routed} for {shards} "
+                             f"shards, {launches} kernel launches")
+    if not machine.verify(vk, proof, Challenger()):
+        raise AssertionError("mesh-commit fib(100000) does not verify")
+    print(f"mesh commit fib(100000) over 4 slots on {dev}, budget "
+          f"{MESH_COMMIT_CELLS} LDE cells: {routed} groups through mesh_lde "
+          f"({shards} shards; main commits by shard {main_routed}), {dt:.3f}s, {launches} kernel launches, peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB, == checked-in proof's {sha}, verified {on}")
+    return launches
+
+
+def multihost_fib100k(on: str, want_sha: str) -> int:
+    """Phase 21: two child processes prove fib(100000) with
+    multihost_prove over gloo, both on cuda:0. Returns their kernel
+    launches together."""
+    import socket
+    import torch
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MULTIHOST_CHILD, str(pid), "2", str(port),
+         FIB100K_CODE, str(FIB100K_SHARD_SIZE)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    dt = time.perf_counter() - t0
+    results = []
+    for p, (out, err) in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"multihost child exited {p.returncode}:\n"
+                                 f"{out}\n{err[-4000:]}")
+        results.append(json.loads(out.strip().splitlines()[-1]))
+    for r in results:
+        if r["sha256"] != want_sha or r["shards"] != FIB100K_SHARDS or \
+                r["launches"] <= 0:
+            raise AssertionError(f"multihost child {r}: expected "
+                                 f"{FIB100K_SHARDS} shards, sha256 {want_sha}")
+        print(f"multihost process {r['pid']} of 2 on cuda:0 (shards "
+              f"{r['pid']} and {r['pid'] + 2}): multihost_prove {r['s']:.3f}s, "
+              f"{r['launches']} kernel launches, peak device memory "
+              f"{r['peak'] / 2**30:.2f} GiB, full proof == checked-in "
+              f"proof's {r['sha256']}, verified {on}")
+    print(f"multihost fib(100000): both processes done in {dt:.3f}s "
+          f"(process start, evaluation, setup, prove, verify) {on}")
+    return sum(r["launches"] for r in results)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -884,10 +1192,11 @@ def main() -> int:
               f"{on}")
 
     lurk_goldens(dev, on)
-    fib_launches = fib100k(dev, on, FIB100K_CODE, FIB100K_SHARD_SIZE,
-                           FIB100K_SHARDS, FIB100K_CELLS,
-                           hashlib.sha256(gzip.decompress(
-                               FIB100K_ARTIFACT.read_bytes())).hexdigest())
+    fib_sha = hashlib.sha256(gzip.decompress(
+        FIB100K_ARTIFACT.read_bytes())).hexdigest()
+    fib_launches, fib_mqs = fib100k(dev, on, FIB100K_CODE,
+                                    FIB100K_SHARD_SIZE, FIB100K_SHARDS,
+                                    FIB100K_CELLS, fib_sha)
 
     # 11-13. the REPL, the CLI and the microchain, every proof on the card
     lurk_dir = Path(tempfile.mkdtemp(prefix="lurk_dir_"))
@@ -906,13 +1215,26 @@ def main() -> int:
     marks.append(("phase 14", time.perf_counter()))
     forced_launches = forced_paths(dev, on)
     marks.append(("phase 15", time.perf_counter()))
-    compiled_fib_launches = fib100k(dev, on, FIB100K_CODE,
-                                    FIB100K_SHARD_SIZE, FIB100K_SHARDS,
-                                    COMPILED_FIB100K_CELLS, None,
-                                    compiled=True)
+    compiled_fib_launches, _ = fib100k(dev, on, FIB100K_CODE,
+                                       FIB100K_SHARD_SIZE, FIB100K_SHARDS,
+                                       COMPILED_FIB100K_CELLS, None,
+                                       compiled=True)
     marks.append(("phase 16", time.perf_counter()))
     loam_and_narrow(on)
     marks.append(("phase 17", time.perf_counter()))
+
+    # 18-21. this slice: the mesh blocks, mesh_prove, the mesh commit and
+    # multi-process proving, with every slot on this card
+    card = torch.device("cuda", torch.cuda.current_device())
+    mesh_block_launches = mesh_blocks(card, on, rng)
+    marks.append(("phase 18", time.perf_counter()))
+    mesh_prove_launches = mesh_prove_fib100k(card, on, fib_mqs, fib_sha)
+    marks.append(("phase 19", time.perf_counter()))
+    mesh_commit_launches = mesh_commit_fib100k(card, on, fib_mqs, fib_sha)
+    marks.append(("phase 20", time.perf_counter()))
+    del fib_mqs
+    multihost_launches = multihost_fib100k(on, fib_sha)
+    marks.append(("phase 21", time.perf_counter()))
     print("wall seconds: " + ", ".join(
         f"{label} {t - prev:.1f}" for (label, t), prev in
         zip(marks, [t_start] + [t for _, t in marks[:-1]])) + f" {on}")
@@ -930,7 +1252,11 @@ def main() -> int:
                              "microchain": chain_launches,
                              "compiled_goldens": compiled_launches,
                              "forced_dag_paths": forced_launches,
-                             "compiled_fib100000": compiled_fib_launches},
+                             "compiled_fib100000": compiled_fib_launches,
+                             "mesh_blocks": mesh_block_launches,
+                             "mesh_prove_fib100000": mesh_prove_launches,
+                             "mesh_commit_fib100000": mesh_commit_launches,
+                             "multihost_fib100000": multihost_launches},
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,

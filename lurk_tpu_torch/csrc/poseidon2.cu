@@ -160,6 +160,28 @@ int set_consts(const Consts<W>& sym, const uint32_t* full,
   return static_cast<int>(cudaMemcpyToSymbol(sym, &h, sizeof(h)));
 }
 
+// Runs body() with `device` current and sets the caller's device back
+// before returning: the runtime's current device belongs to the calling
+// host thread, and PyTorch keeps its own record of it, so an entry point
+// that left another device current would put the two out of step.
+// Returns body()'s cudaError_t, or the first error of the device switch.
+template <typename F>
+int on_device(int device, F body) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (prev != device) {
+    err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  int res = body();
+  if (prev != device) {
+    err = cudaSetDevice(prev);
+    if (res == 0 && err != cudaSuccess) res = static_cast<int>(err);
+  }
+  return res;
+}
+
 }  // namespace
 
 extern "C" {
@@ -177,37 +199,39 @@ int lurk_poseidon2_partial_rounds(int width) {
 }
 
 // Upload Montgomery-form constants for one width to `device`: full
-// (R_F, width) row-major, part (R_P,), diag (width,). Returns a cudaError_t.
+// (R_F, width) row-major, part (R_P,), diag (width,). The caller's current
+// device is unchanged on return. Returns a cudaError_t.
 int lurk_poseidon2_set_constants(int device, int width, const uint32_t* full,
                                  const uint32_t* part, const uint32_t* diag) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  switch (width) {
-    case 16: return set_consts<16>(k16, full, part, diag);
-    case 24: return set_consts<24>(k24, full, part, diag);
-    case 32: return set_consts<32>(k32, full, part, diag);
-    case 40: return set_consts<40>(k40, full, part, diag);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return on_device(device, [&]() -> int {
+    switch (width) {
+      case 16: return set_consts<16>(k16, full, part, diag);
+      case 24: return set_consts<24>(k24, full, part, diag);
+      case 32: return set_consts<32>(k32, full, part, diag);
+      case 40: return set_consts<40>(k40, full, part, diag);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  });
 }
 
 // out = n_chain permutations of in; both (width, batch) u32 Montgomery,
 // contiguous, on `device`. Launches on `stream` (a stream of that device)
-// without synchronising. Returns a cudaError_t (0 on success).
+// without synchronising; the caller's current device is unchanged on
+// return. Returns a cudaError_t (0 on success).
 int lurk_poseidon2_permute(int device, const uint32_t* in, uint32_t* out,
                            int width, long long batch, int n_chain,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch <= 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  switch (width) {
-    case 16: return launch<16, 13>(in, out, batch, n_chain, s);
-    case 24: return launch<24, 21>(in, out, batch, n_chain, s);
-    case 32: return launch<32, 30>(in, out, batch, n_chain, s);
-    case 40: return launch<40, 38>(in, out, batch, n_chain, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return on_device(device, [&]() -> int {
+    switch (width) {
+      case 16: return launch<16, 13>(in, out, batch, n_chain, s);
+      case 24: return launch<24, 21>(in, out, batch, n_chain, s);
+      case 32: return launch<32, 30>(in, out, batch, n_chain, s);
+      case 40: return launch<40, 38>(in, out, batch, n_chain, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  });
 }
 
 }  // extern "C"

@@ -9,7 +9,11 @@ current stream.
 `permute_mont_cuda(state)` sends a CUDA tensor to the kernel and a CPU
 tensor to the plain PyTorch version (poseidon/perm.py::permute_mont); it
 raises on anything the kernel does not take and on a failed build or
-launch. `permute_mont_cuda.launches` counts kernel launches.
+launch. `permute_mont_cuda.launches` counts kernel launches. The wrapper
+may be called from several threads at once (parallel/shard_prover.py
+runs one worker per device slot): the constant upload and the count are
+taken under a lock, and the library's entry points leave the calling
+thread's current CUDA device as they found it.
 """
 
 from __future__ import annotations
@@ -37,6 +41,10 @@ BUILD_DIR = _ROOT / "build" / "lurk_tpu_torch"
 # one build at a time in this process: the REPL's warmup thread and a
 # first prove may both ask for the library
 _BUILD_LOCK = threading.Lock()
+# the constant uploads done so far, {(width, device index)}, and the lock
+# that makes a concurrent first use upload once and the launch count exact
+_LOADED = set()
+_STATE_LOCK = threading.Lock()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -98,10 +106,19 @@ def _library():
     return lib
 
 
-@lru_cache(maxsize=None)
-def _constants_loaded(width: int, device_index: int) -> bool:
+def _constants_loaded(width: int, device_index: int) -> None:
     """Upload one width's Montgomery constants to the kernel's constant
-    memory on the given device (once per process and device)."""
+    memory on the given device (once per process and device; a thread
+    that comes while another uploads waits for it)."""
+    if (width, device_index) in _LOADED:
+        return
+    with _STATE_LOCK:
+        if (width, device_index) not in _LOADED:
+            _upload_constants(width, device_index)
+            _LOADED.add((width, device_index))
+
+
+def _upload_constants(width: int, device_index: int) -> None:
     lib = _library()
     cfg = get_config(width)
     rp = lib.lurk_poseidon2_partial_rounds(width)
@@ -116,7 +133,6 @@ def _constants_loaded(width: int, device_index: int) -> bool:
         diag.ctypes.data)
     if err != 0:
         raise RuntimeError(f"Poseidon2 constant upload failed: cudaError {err}")
-    return True
 
 
 def permute_mont_cuda(state: torch.Tensor, n_chain: int = 1) -> torch.Tensor:
@@ -152,7 +168,8 @@ def permute_mont_cuda(state: torch.Tensor, n_chain: int = 1) -> torch.Tensor:
         n_chain, stream)
     if err != 0:
         raise RuntimeError(f"Poseidon2 kernel launch failed: cudaError {err}")
-    permute_mont_cuda.launches += 1
+    with _STATE_LOCK:
+        permute_mont_cuda.launches += 1
     return out
 
 

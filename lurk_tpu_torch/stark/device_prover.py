@@ -22,10 +22,12 @@ Ported: mod sums, the device Merkle trees, the committed rounds (LDE +
 tree), the plan-driven LogUp permutation trace, the constraint-VM
 quotient, the openings and FRI, device witness generation for big
 extern-free func chips and the hash3/4/5 chips (lair/device_trace.py),
-device_prove's `full`, `light` and `none` keep modes, and the per-chip
+device_prove's `full`, `light` and `none` keep modes, the per-chip
 DAG paths (a chip with non-affine interactions, LURK_TPU_GENERIC_PERM=0,
-LURK_TPU_QUOT=window|mono). Not ported yet (ROADMAP.md): the row-sharded
-mesh commit, which needs parallel/.
+LURK_TPU_QUOT=window|mono), and the row-sharded mesh commit
+(_mesh_commit_cfg: a trace group whose LDE is past the budget takes
+parallel/ntt_mesh.mesh_lde over the mesh's slots; its Merkle tree is
+still built on the prover's device).
 """
 
 from __future__ import annotations
@@ -425,6 +427,27 @@ def _to_device(m, device) -> torch.Tensor:
     return bb.from_numpy(np.asarray(m), device)
 
 
+def _mesh_commit_cfg():
+    """(mesh, per-slot cell budget) for row-sharded commits; (None, 0)
+    when disabled. A trace group whose LDE exceeds the budget gets its
+    NTTs computed with the four-step all-to-all mesh NTT
+    (parallel/ntt_mesh.mesh_lde), as in lurk_tpu.
+
+    Default AUTO: enabled whenever the default mesh has more than one slot
+    (more than one CUDA card, or LURK_TPU_MESH_DEVICES naming several
+    slots); the budget (LURK_TPU_MESH_COMMIT_CELLS, default 2^28 LDE cells)
+    keeps ordinary groups on the single-device path. LURK_TPU_MESH_COMMIT=0
+    disables; 1 is the same as auto."""
+    if _os.environ.get("LURK_TPU_MESH_COMMIT", "auto") == "0":
+        return None, 0
+    from ..parallel.mesh import make_mesh, mesh_devices
+    if len(mesh_devices()) < 2:
+        return None, 0
+    budget = int(_os.environ.get("LURK_TPU_MESH_COMMIT_CELLS",
+                                 str(1 << 28)))
+    return make_mesh(), budget
+
+
 def dcommit(matrices: list, device=None, finalize: bool = True) -> DRound:
     """matrices: device tensors or host (h, w) canonical arrays (uploaded
     to `device`, default the first tensor's device or default_device()).
@@ -439,12 +462,22 @@ def dcommit(matrices: list, device=None, finalize: bool = True) -> DRound:
     mats = [_to_device(m, device) for m in matrices]
     trace_lhs = [_log2(int(m.shape[0])) for m in mats]
     groups = host_pcs._group_by_height(trace_lhs)
+    mesh, mesh_budget = _mesh_commit_cfg()
     trees = []
     group_coeffs = []
     for log_h, idxs in groups:
         group_mats = [mats[i] for i in idxs]
         widths = [int(m.shape[1]) for m in group_mats]
-        cfs, group_lde = _lde_group(group_mats, log_h)
+        group_cells = (1 << (log_h + LOG_BLOWUP)) * sum(widths)
+        if mesh is not None and group_cells > mesh_budget and \
+                (1 << log_h) >= mesh.devices.size ** 2:
+            from ..parallel.ntt_mesh import mesh_lde
+            group = torch.cat(group_mats, dim=1) if len(group_mats) > 1 \
+                else group_mats[0]
+            # the LDE and coefficients come back on the prover's device
+            cfs, group_lde = mesh_lde(mesh, group, LOG_BLOWUP)
+        else:
+            cfs, group_lde = _lde_group(group_mats, log_h)
         trees.append((log_h + LOG_BLOWUP,
                       dtree_commit(None, concat=group_lde, widths=widths,
                                    defer=True)))

@@ -127,6 +127,48 @@ def fib_machine(n: int, config):
     return StarkMachine(chips, len(q.expect_public_values()), config), q
 
 
+def _ackermann_func():
+    """Ackermann(m, n) as one Lair function (lurk_tpu's tests build it the
+    same way, tests/test_lair_air.py)."""
+    from ..lair.dsl import FuncBuilder
+    b = FuncBuilder("ackermann", ["m", "n"], 1)
+    m, n = b.input("m"), b.input("n")
+    one = b.const(1)
+
+    def m0(bb):
+        bb.ret(bb.add(n, one))
+
+    def m_default(bb):
+        m_minus_one = bb.sub(m, one)
+
+        def n0(b2):
+            b2.ret(b2.call("ackermann", m_minus_one, one)[0])
+
+        def n_default(b2):
+            inner = b2.call("ackermann", m, b2.sub(n, one))[0]
+            b2.ret(b2.call("ackermann", m_minus_one, inner)[0])
+
+        bb.match(n, [(0, n0)], default=n_default)
+
+    b.match(m, [(0, m0)], default=m_default)
+    return b.build()
+
+
+def ackermann_machine(m: int, n: int, config):
+    """(machine, queries) for Ackermann(m, n): one func chip whose shards
+    stitch many lookups (a multi-shard proof at a small max_shard_size)."""
+    from ..lair.chips import build_lair_chip_vector
+    from ..lair.execute import QueryRecord, execute_by_name
+    from ..lair.toplevel import Toplevel
+    from ..lair.trace import FuncChip
+    from .machine import StarkMachine
+    tl = Toplevel([_ackermann_func()])
+    q = QueryRecord(tl)
+    execute_by_name(tl, "ackermann", [m, n], q)
+    chips = build_lair_chip_vector(FuncChip.from_name("ackermann", tl))
+    return StarkMachine(chips, len(q.expect_public_values()), config), q
+
+
 def _proved(machine, pk, vk, queries, device, shard_config=None):
     from ..utils import codec
     from .challenger import Challenger

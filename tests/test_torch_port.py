@@ -198,6 +198,34 @@ def test_device_prover_has_no_cpu_fallback(monkeypatch):
                           Challenger())
 
 
+def test_parallel_entry_points_have_no_cpu_fallback(monkeypatch):
+    """Without CUDA, make_mesh(), mesh_prove(devices=None) and
+    multihost_prove(device=None) raise; they run on the CPU only when the
+    caller names cpu slots (LURK_TPU_MESH_DEVICES or `devices`) or a CPU
+    prover (tests/test_torch_parallel.py and test_torch_multihost.py prove
+    that way)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device exists")
+    from lurk_tpu_torch.parallel.mesh import ENV_DEVICES, make_mesh
+    from lurk_tpu_torch.parallel.multihost import multihost_prove
+    from lurk_tpu_torch.parallel.shard_prover import mesh_prove
+    from lurk_tpu_torch.stark.challenger import Challenger
+    from lurk_tpu_torch.stark.fri import FriConfig
+    machine, q = golden.fib_machine(8, FriConfig(1, 8, 2))
+    pk, vk = machine.setup()
+    monkeypatch.delenv(ENV_DEVICES, raising=False)
+    monkeypatch.delenv("LURK_TPU_PROVE", raising=False)
+    for call in (make_mesh,
+                 lambda: mesh_prove(machine, pk, q, Challenger()),
+                 lambda: multihost_prove(machine, pk, q, Challenger())):
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            call()
+    monkeypatch.setenv(ENV_DEVICES, "cpu,cpu")
+    assert list(make_mesh().devices.flat) == [torch.device("cpu")] * 2
+    proof = multihost_prove(machine, pk, q, Challenger(), device=False)
+    assert machine.verify(vk, proof, Challenger())
+
+
 def test_chip_smoke_fails_without_a_card():
     """No CPU fallback: without CUDA, chip_smoke.py exits non-zero and
     prints no result."""
