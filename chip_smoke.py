@@ -83,7 +83,23 @@ Phases (each raises on failure; nothing is caught):
      127.0.0.1 through parallel/multihost.initialize, both on cuda:0; each
      runs multihost_prove(..., device=True) of fib(100000) in 4 shards,
      proving shards p and p + 2, and returns the full proof, byte-identical
-     to the checked-in proof.
+     to the checked-in proof;
+ 22. the default config: phase 10's fib(100000) through machine.prove(...,
+     device=True) with no shard_config, so that stark/hbm.py plans its
+     shards and keep mode for the whole card: cold and warm, byte-equal,
+     verified;
+ 23. capped: the same prove in this process capped with
+     torch.cuda.set_per_process_memory_fraction at three limits, under
+     which the planner picks 4 shards in keep mode `full` (byte-identical
+     to the checked-in proof), 4 in `light`, and 8 in `none` with the
+     modeled prove at 0.8 of the budget or more;
+ 24. the reference's sum and lcs benches (benches/lurk_bench.py's
+     sum_expr(100000) and lcs_expr()) evaluated and proved at the default
+     config on the whole card, cold and warm, byte-equal, verified.
+
+Every prove of phases 10, 16 and 22-24 starts from an emptied allocator
+cache and holds the memory model: the reserved peak is at most the
+modeled prove, and the modeled prove at most 1.5 times the reserved peak.
 
 Prints the kernels' JSON line, then the device line last. Every time is
 printed beside the card's name and power limit.
@@ -114,6 +130,8 @@ FIB100K_SHARDS = 4
 FIB100K_CELLS = 326_397_960
 FIB100K_RESULT = "2754320626097736315"
 COMPILED_FIB100K_CELLS = 218_659_792
+LCS_RESULT = '"here mst beome nay o e eoe to the ti s  h connct et nor"'
+SUM100K_RESULT = "4999950000"
 FORCED_PATHS = ({"LURK_TPU_GENERIC_PERM": "0"}, {"LURK_TPU_QUOT": "window"},
                 {"LURK_TPU_QUOT": "mono"})
 # the forced path whose device events phase 15 counts beside the default
@@ -538,7 +556,7 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
                              f"{want_shards} / {want_cells}")
     runs = []
     for run in ("cold", "warm"):
-        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.empty_cache()
         permute_mont_cuda.launches = 0
         t0 = time.perf_counter()
         proof = machine.prove(pk, q, Challenger(), shard_config=cfg,
@@ -548,7 +566,6 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
         n = permute_mont_cuda.launches
         stats = machine.last_device_prove
         sha = hashlib.sha256(codec.encode(proof)).hexdigest()
-        peak = torch.cuda.max_memory_allocated()
         runs.append((dt, n, sha))
         print(f"{label}fib(100000) {run} prove: {dt:.3f}s "
               f"({cells / dt:.1f} cells/s), witness on the card "
@@ -558,11 +575,9 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
               f"{stats['host_witness_s']:.3f}s for "
               f"{stats['host_witness_chips']} chips / "
               f"{stats['host_witness_cells']} cells, keep mode "
-              f"{stats['keep_mode']}, peak device memory "
-              f"{peak / 2**30:.2f} GiB vs modeled shard high-water "
-              f"{stats['modeled_highwater_bytes'] / 2**30:.2f} GiB (budget "
-              f"{stats['budget_bytes'] / 2**30:.2f} GiB), kernel launches "
+              f"{stats['keep_mode']}, {_memory(stats)}, kernel launches "
               f"{n}, sha256 {sha} {on}")
+        _check_memory(f"{label}fib(100000) {run}", stats)
         if n <= 0 or stats["device_witness_chips"] <= 0:
             raise AssertionError(f"fib(100000): {n} kernel launches, "
                                  f"{stats['device_witness_chips']} "
@@ -584,7 +599,176 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
         f"== checked-in proof's {want_sha}"
     print(f"{label}fib(100000): proof sha256 {held}, verified in {vt:.3f}s "
           f"{on}")
-    return runs[1][1], (machine, pk, vk, q, cfg)
+    return runs[1][1], (machine, pk, vk, q, cfg), (toplevel, zstore, eval_s)
+
+
+def _memory(stats) -> str:
+    """The prove's modeled high-water against its measured peaks, and the
+    phases that set them."""
+    g = 2 ** 30
+    peaks = stats["phase_peaks"]
+    top = max(peaks, key=lambda p: p["allocated"])
+    first = next(p for p in peaks
+                 if p["reserved"] == stats["peak_reserved_bytes"])
+    return (f"modeled prove {stats['modeled_prove_bytes'] / g:.2f} GiB vs "
+            f"peak reserved {stats['peak_reserved_bytes'] / g:.2f} GiB "
+            f"(reached in {first['phase']}), peak allocated "
+            f"{stats['peak_allocated_bytes'] / g:.2f} GiB (in "
+            f"{top['phase']}), modeled one shard "
+            f"{stats['modeled_highwater_bytes'] / g:.2f} GiB, budget "
+            f"{stats['budget_bytes'] / g:.2f} GiB")
+
+
+def _check_memory(label: str, stats) -> None:
+    """The memory model bounds the measured reserved peak from above, by
+    no more than 1.5x; the phase peaks go to stdout as one JSON line."""
+    print("phase peaks " + json.dumps({"proof": label, "phases": [
+        [p["phase"], p["modeled"], p["reserved"], p["allocated"],
+         p["resident"]] for p in stats["phase_peaks"]]}))
+    reserved, modeled = stats["peak_reserved_bytes"], \
+        stats["modeled_prove_bytes"]
+    if not reserved <= modeled <= 1.5 * reserved:
+        raise AssertionError(f"{label}: modeled {modeled} B against a "
+                             f"reserved peak of {reserved} B")
+
+
+def _default_prove(machine, pk, vk, q, label: str, on: str,
+                   runs=("cold", "warm")):
+    """Prove q at the default config (no shard_config) through
+    machine.prove(..., device=True), once per run in `runs`, each after
+    torch.cuda.empty_cache(); print each run's plan, seconds, memory
+    against the model and kernel launches; hold the runs' proofs equal,
+    the memory bounds and the proof to the verifier. Returns (sha256,
+    the last run's launches and stats)."""
+    import torch
+    from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
+    from lurk_tpu_torch.stark.challenger import Challenger
+    from lurk_tpu_torch.utils import codec
+    shas = []
+    for run in runs:
+        torch.cuda.empty_cache()
+        permute_mont_cuda.launches = 0
+        t0 = time.perf_counter()
+        proof = machine.prove(pk, q, Challenger(), device=True)
+        _sync()
+        dt = time.perf_counter() - t0
+        n = permute_mont_cuda.launches
+        stats = machine.last_device_prove
+        shas.append(hashlib.sha256(codec.encode(proof)).hexdigest())
+        print(f"{label} {run} prove at the default config: "
+              f"{stats['shards']} shard(s), keep mode {stats['keep_mode']}, "
+              f"{dt:.3f}s, {n} kernel launches, {_memory(stats)}, sha256 "
+              f"{shas[-1]} {on}")
+        _check_memory(f"{label} {run} at the default config", stats)
+        if n <= 0 or len(proof.shard_proofs) != stats["shards"]:
+            raise AssertionError(f"{label}: {n} kernel launches, "
+                                 f"{len(proof.shard_proofs)} shard proofs")
+    if len(set(shas)) != 1:
+        raise AssertionError(f"{label}: the runs' proofs differ {shas}")
+    t0 = time.perf_counter()
+    if not machine.verify(vk, proof, Challenger()):
+        raise AssertionError(f"{label} does not verify")
+    print(f"{label}: verified in {time.perf_counter() - t0:.3f}s {on}")
+    return shas[-1], n, stats
+
+
+def _plan_under(machine, q, limit: int):
+    """(shards, keep mode) that device_prove plans for a device limit."""
+    from lurk_tpu_torch.stark import hbm
+    shards, budget = hbm.plan_shards(machine, q, limit_bytes=limit)
+    return len(shards), hbm.keep_mode(machine, shards, budget)
+
+
+def _cap_for(machine, q, size: int, keep_mode: str) -> int:
+    """A device limit under which the planner picks `size`-row shards in
+    `keep_mode`, with the modeled prove at 0.9 of its budget or above."""
+    from lurk_tpu_torch.lair.execute import Shard, ShardingConfig
+    from lurk_tpu_torch.stark import hbm
+    shards = Shard(q, 0, ShardingConfig(size)).shard()
+    modeled = hbm.modeled_prove_bytes(machine, shards, keep_mode)
+    for share in (0.9, 0.95, 0.99, 1.0):
+        limit = hbm.limit_for_budget(int(modeled / share))
+        if _plan_under(machine, q, limit) == (len(shards), keep_mode):
+            return limit
+    raise AssertionError(f"no device limit plans {len(shards)} shards in "
+                         f"keep mode {keep_mode}")
+
+
+def default_config_fib100k(on: str, mqs, eval_s: float, want_sha: str):
+    """Phases 22 and 23: phase 10's fib(100000) machine, keys and queries
+    (its evaluation took eval_s) proved at the default config, on the
+    whole card (cold and warm), then
+    in a process capped with torch.cuda.set_per_process_memory_fraction
+    at limits under which the planner picks 4 shards in keep mode `full`,
+    4 in `light` and 8 in `none`. Returns the launches of the whole-card
+    warm prove and of the capped proves together."""
+    import torch
+    machine, pk, vk, q, _ = mqs
+    print(f"fib(100000) at the default config: eval {eval_s:.3f}s (phase "
+          f"10), {machine._trace_cells(q, None)} padded cells at the "
+          f"default shard size {on}")
+    _, launches, stats = _default_prove(machine, pk, vk, q, "fib(100000)",
+                                        on)
+    if stats["keep_mode"] != "full":
+        raise AssertionError(f"fib(100000) on the whole card planned {stats}")
+    total = torch.cuda.mem_get_info()[1]
+    capped = 0
+    for size, keep_mode in ((1 << 18, "full"), (1 << 18, "light"),
+                            (1 << 17, "none")):
+        limit = _cap_for(machine, q, size, keep_mode)
+        label = (f"fib(100000) capped at {limit / 2**30:.2f} GiB "
+                 f"({limit / total:.4f} of the card)")
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(limit / total)
+        try:
+            sha, n, stats = _default_prove(machine, pk, vk, q, label, on,
+                                           runs=("warm",))
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        capped += n
+        share = stats["modeled_prove_bytes"] / stats["budget_bytes"]
+        want = (FIB100K_SHARDS if size == FIB100K_SHARD_SIZE else
+                2 * FIB100K_SHARDS, keep_mode)
+        if (stats["shards"], stats["keep_mode"]) != want or share < 0.8:
+            raise AssertionError(f"{label}: planned {stats['shards']} "
+                                 f"shards, keep mode {stats['keep_mode']}, "
+                                 f"{share:.3f} of the budget; want {want}")
+        if size == FIB100K_SHARD_SIZE and sha != want_sha:
+            raise AssertionError(f"{label}: sha256 {sha} != the checked-in "
+                                 f"proof's {want_sha}")
+        print(f"{label}: {stats['shards']} shards, keep mode "
+              f"{stats['keep_mode']}, modeled prove {share:.3f} of the "
+              f"budget" + (", == checked-in proof"
+                           if size == FIB100K_SHARD_SIZE else "") + f" {on}")
+    return launches, capped
+
+
+def default_config_benches(on: str, mqs, toplevel, zstore) -> dict:
+    """Phase 24: the reference's sum and lcs benches
+    (benches/lurk_bench.py's sum_expr(100000) and lcs_expr(), the
+    arguments of benches/sum.rs and lcs.rs) evaluated on phase 10's
+    toplevel and store and proved with its machine and keys at the
+    default config on the whole card, cold and warm, each verified.
+    Returns each bench's warm launches."""
+    sys.path.insert(0, str(ROOT / "benches"))
+    from lurk_bench import lcs_expr, sum_expr
+    from lurk_tpu_torch.core.eval_api import evaluate
+    machine, pk, vk, _, _ = mqs
+    launches = {}
+    for name, code, want in (("lcs", lcs_expr(), LCS_RESULT),
+                             ("sum(100000)", sum_expr(100000),
+                              SUM100K_RESULT)):
+        t0 = time.perf_counter()
+        result, q = evaluate(toplevel, zstore, code)
+        eval_s = time.perf_counter() - t0
+        shown = zstore.fmt(result)
+        cells = machine._trace_cells(q, None)
+        print(f"{name} = {shown}: eval {eval_s:.3f}s, {cells} padded cells "
+              f"at the default shard size {on}")
+        if shown != want:
+            raise AssertionError(f"{name} evaluated to {shown}, not {want}")
+        _, launches[name], _ = _default_prove(machine, pk, vk, q, name, on)
+    return launches
 
 
 def _proofs(lurk_dir: Path) -> set:
@@ -946,7 +1130,6 @@ def mesh_commit_fib100k(dev, on: str, mqs, want_sha: str) -> int:
     device_prover.dcommit = counting_dcommit
     try:
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
         permute_mont_cuda.launches = 0
         calls = ntt_mesh.mesh_lde.calls
         t0 = time.perf_counter()
@@ -973,8 +1156,9 @@ def mesh_commit_fib100k(dev, on: str, mqs, want_sha: str) -> int:
         raise AssertionError("mesh-commit fib(100000) does not verify")
     print(f"mesh commit fib(100000) over 4 slots on {dev}, budget "
           f"{MESH_COMMIT_CELLS} LDE cells: {routed} groups through mesh_lde "
-          f"({shards} shards; main commits by shard {main_routed}), {dt:.3f}s, {launches} kernel launches, peak "
-          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"({shards} shards; main commits by shard {main_routed}), "
+          f"{dt:.3f}s, {launches} kernel launches, peak device memory "
+          f"{machine.last_device_prove['peak_allocated_bytes'] / 2**30:.2f} "
           f"GiB, == checked-in proof's {sha}, verified {on}")
     return launches
 
@@ -1057,6 +1241,11 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = cuda_kernel.build(verbose=True)
     print(f"build: {time.perf_counter() - t0:.3f}s {lib.name} {on}")
+    torch.ones(1, device=dev)
+    free, total = torch.cuda.mem_get_info(dev)
+    outside = total - free - torch.cuda.memory_reserved(dev)
+    print(f"device memory: {total} B in all, {outside} B outside the "
+          f"caching allocator after start-up (context, kernel module) {on}")
 
     # 3. kernel vs plain version vs scalar oracle
     rng = np.random.default_rng(0)
@@ -1142,12 +1331,11 @@ def main() -> int:
     if len(proof.shard_proofs) != 1:
         raise AssertionError(f"{len(proof.shard_proofs)} shards, expected 1")
     cold_sha = hashlib.sha256(codec.encode(proof)).hexdigest()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     proof = machine.prove(pk, q, Challenger(), device=True)
     _sync()
     warm = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
+    peak = machine.last_device_prove["peak_allocated_bytes"]
     sha = hashlib.sha256(codec.encode(proof)).hexdigest()
     if sha != cold_sha:
         raise AssertionError("cold and warm proofs differ")
@@ -1194,9 +1382,9 @@ def main() -> int:
     lurk_goldens(dev, on)
     fib_sha = hashlib.sha256(gzip.decompress(
         FIB100K_ARTIFACT.read_bytes())).hexdigest()
-    fib_launches, fib_mqs = fib100k(dev, on, FIB100K_CODE,
-                                    FIB100K_SHARD_SIZE, FIB100K_SHARDS,
-                                    FIB100K_CELLS, fib_sha)
+    fib_launches, fib_mqs, fib_pipeline = fib100k(
+        dev, on, FIB100K_CODE, FIB100K_SHARD_SIZE, FIB100K_SHARDS,
+        FIB100K_CELLS, fib_sha)
 
     # 11-13. the REPL, the CLI and the microchain, every proof on the card
     lurk_dir = Path(tempfile.mkdtemp(prefix="lurk_dir_"))
@@ -1215,10 +1403,10 @@ def main() -> int:
     marks.append(("phase 14", time.perf_counter()))
     forced_launches = forced_paths(dev, on)
     marks.append(("phase 15", time.perf_counter()))
-    compiled_fib_launches, _ = fib100k(dev, on, FIB100K_CODE,
-                                       FIB100K_SHARD_SIZE, FIB100K_SHARDS,
-                                       COMPILED_FIB100K_CELLS, None,
-                                       compiled=True)
+    compiled_fib_launches, _, _ = fib100k(dev, on, FIB100K_CODE,
+                                          FIB100K_SHARD_SIZE, FIB100K_SHARDS,
+                                          COMPILED_FIB100K_CELLS, None,
+                                          compiled=True)
     marks.append(("phase 16", time.perf_counter()))
     loam_and_narrow(on)
     marks.append(("phase 17", time.perf_counter()))
@@ -1232,9 +1420,16 @@ def main() -> int:
     marks.append(("phase 19", time.perf_counter()))
     mesh_commit_launches = mesh_commit_fib100k(card, on, fib_mqs, fib_sha)
     marks.append(("phase 20", time.perf_counter()))
-    del fib_mqs
     multihost_launches = multihost_fib100k(on, fib_sha)
     marks.append(("phase 21", time.perf_counter()))
+
+    # 22-24. this slice: the default config, planned by the memory model
+    default_launches, capped_launches = default_config_fib100k(
+        on, fib_mqs, fib_pipeline[2], fib_sha)
+    marks.append(("phases 22-23", time.perf_counter()))
+    bench_launches = default_config_benches(on, fib_mqs, *fib_pipeline[:2])
+    marks.append(("phase 24", time.perf_counter()))
+    del fib_mqs, fib_pipeline
     print("wall seconds: " + ", ".join(
         f"{label} {t - prev:.1f}" for (label, t), prev in
         zip(marks, [t_start] + [t for _, t in marks[:-1]])) + f" {on}")
@@ -1256,7 +1451,13 @@ def main() -> int:
                              "mesh_blocks": mesh_block_launches,
                              "mesh_prove_fib100000": mesh_prove_launches,
                              "mesh_commit_fib100000": mesh_commit_launches,
-                             "multihost_fib100000": multihost_launches},
+                             "multihost_fib100000": multihost_launches,
+                             "lurk_fib100000_default_config":
+                                 default_launches,
+                             "lurk_fib100000_capped": capped_launches,
+                             "lurk_lcs_default_config": bench_launches["lcs"],
+                             "lurk_sum100000_default_config":
+                                 bench_launches["sum(100000)"]},
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,

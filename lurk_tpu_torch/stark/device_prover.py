@@ -66,14 +66,44 @@ def _mem_str() -> str:
         return ""
     g = 1 << 30
     return (f" [cuda {torch.cuda.memory_allocated() / g:.2f}/"
-            f"{torch.cuda.max_memory_allocated() / g:.2f} GiB use/peak]")
+            f"{torch.cuda.max_memory_allocated() / g:.2f}/"
+            f"{torch.cuda.max_memory_reserved() / g:.2f} GiB "
+            "use/peak/peak reserved]")
 
 
-def _tlog(label: str, t0: float) -> float:
+class _PhasePeaks:
+    """Device-memory peaks of a prove's phases on a CUDA device: at each
+    stamp, the allocated and reserved peaks since the previous stamp (the
+    allocator's peak counters are reset there) and the allocated memory
+    left. Allocations happen when an op is dispatched, so a phase's peak
+    is that of the ops dispatched in it. Records nothing on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.device = device if device.type == "cuda" else None
+        self.peaks: List[Tuple[str, int, int, int]] = []
+        if self.device is not None:
+            torch.cuda.reset_peak_memory_stats(self.device)
+
+    def stamp(self, phase: str) -> None:
+        d = self.device
+        if d is None:
+            return
+        self.peaks.append((phase, torch.cuda.max_memory_allocated(d),
+                           torch.cuda.max_memory_reserved(d),
+                           torch.cuda.memory_allocated(d)))
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def _tlog(label: str, t0: float, mem: Optional[_PhasePeaks] = None,
+          phase: str = "") -> float:
+    """Print the seconds since t0 under LURK_TPU_PROVE_TIMING=1 (and the
+    device memory, before `mem` resets its peaks at `phase`)."""
     t1 = _time.perf_counter()
     if _TIMING:
         print(f"[prove-timing] {label}: {t1 - t0:.3f}s{_mem_str()}",
               file=_sys.stderr, flush=True)
+    if mem is not None:
+        mem.stamp(phase)
     return t1
 
 
@@ -868,24 +898,28 @@ def device_quotient_chunk_vm(builder, main_lde, prep_lde, perm_lde,
         parts.append(prep_lde)
     parts += [torch.stack([sels["first"], sels["last"], sels["transition"],
                            torch.ones_like(sels["first"])], dim=1)]
-    X = torch.cat([p.to(I64) for p in parts], dim=1)
-    Xn = torch.roll(X, -stride, dims=0)
+    x_width = sum(int(p.shape[1]) for p in parts)
     a = _plan_arrays(plan, pv, r, gamma, device, pad_d_one=True,
                      n_keep=2 * nb)
-    phi = perm_lde[:, :4 * nb].to(I64).reshape(big, nb, 4)
-    s = perm_lde[:, 4 * nb:4 * nb + 4].to(I64)
-    phi_n = torch.roll(phi, -stride, dims=0)
-    s_n = torch.roll(s, -stride, dims=0)
     cum_dev = ext_scalar_dev(cum, device)
-    rows = min(big, _vm_rows(prog.n_regs + 2 * X.shape[1]))
+    rows = min(big, _vm_rows(prog.n_regs + 2 * x_width))
     outs = []
     for c0 in range(0, big, rows):
+        # rows c0 .. c0 + rows + stride (mod big) in int64: the chunk's
+        # local rows, and `stride` rows on its next rows
+        win = torch.cat([_window(p, c0, rows, stride, big).to(I64)
+                         for p in parts], dim=1)
+        pwin = _window(perm_lde, c0, rows, stride, big).to(I64)
+        phi = pwin[:, :4 * nb].reshape(-1, nb, 4)
+        s = pwin[:, 4 * nb:4 * nb + 4]
+        X, Xn = win[:rows], win[stride:stride + rows]
         sl = slice(c0, c0 + rows)
         sel_l = (sels["first"][sl], sels["last"][sl], sels["transition"][sl])
-        folded = _vm_eval(prog, consts, X[sl], Xn[sl], wbase)
-        folded = (folded + _pq_eval(a, nb, X[sl], Xn[sl], phi[sl], phi_n[sl],
-                                    s[sl], s_n[sl], sel_l, cum_dev, wb,
-                                    wsel)) % P
+        folded = _vm_eval(prog, consts, X, Xn, wbase)
+        folded = (folded + _pq_eval(a, nb, X, Xn, phi[:rows],
+                                    phi[stride:stride + rows], s[:rows],
+                                    s[stride:stride + rows], sel_l, cum_dev,
+                                    wb, wsel)) % P
         outs.append(folded)
     folded = torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]
     return _quotient_epilogue(folded, tabs, log_h)
@@ -1089,12 +1123,27 @@ def device_ext_powers(z, n: int, device) -> torch.Tensor:
     return out
 
 
+def _open_rows(width: int, height: int) -> int:
+    """Rows per opening block: about LDE_CHUNK_CELLS cells of a (height,
+    width) matrix (a power of two, so it divides the height), bounding the
+    int64 products of the opened values and the reduced openings whatever
+    the group's width."""
+    rows = max(1, LDE_CHUNK_CELLS // max(width, 1))
+    return min(height, 1 << (rows.bit_length() - 1))
+
+
 def _eval_coeffs(coeffs, zp):
     """sum_i coeffs[i, c] * z^i for every column c: (h, w) canonical
-    coefficients, (h, 4) powers -> (w, 4)."""
-    c = coeffs.to(I64)
-    return torch.stack([mod_tree_sum(c * zp[:, l:l + 1] % P, dim=0)
-                        for l in range(4)], dim=1)
+    coefficients, (h, 4) powers -> (w, 4), summed over row blocks."""
+    h, w = int(coeffs.shape[0]), int(coeffs.shape[1])
+    rows = _open_rows(w, h)
+    acc = 0
+    for r0 in range(0, h, rows):
+        c = coeffs[r0:r0 + rows].to(I64)
+        z = zp[r0:r0 + rows]
+        acc = (acc + torch.stack([mod_tree_sum(c * z[:, l:l + 1] % P, dim=0)
+                                  for l in range(4)], dim=1).to(I64)) % P
+    return acc.to(I32)
 
 
 @lru_cache(maxsize=None)
@@ -1110,11 +1159,6 @@ def _inv_xz(xs, z_dev):
                                  z_dev.expand(xs.shape[0], 4)))
 
 
-# rows per reduced-opening chunk: bounds the (rows, W_total) int64
-# product transient regardless of the LDE height
-_REDUCE_CHUNK = 1 << 19
-
-
 def _reduce(lde, apows, y_alpha, inv_xz):
     """(sum_c apows[c] * lde[:, c] - y_alpha) / (x - z) per row."""
     l64 = lde.to(I64)
@@ -1125,9 +1169,10 @@ def _reduce(lde, apows, y_alpha, inv_xz):
 
 def _reduce_chunked(lde, apows, y_alpha, inv_xz):
     H = int(lde.shape[0])
-    return torch.cat([_reduce(lde[s:s + _REDUCE_CHUNK], apows, y_alpha,
-                              inv_xz[s:s + _REDUCE_CHUNK])
-                      for s in range(0, H, _REDUCE_CHUNK)], dim=0)
+    rows = _open_rows(int(lde.shape[1]), H)
+    return torch.cat([_reduce(lde[s:s + rows], apows, y_alpha,
+                              inv_xz[s:s + rows])
+                      for s in range(0, H, rows)], dim=0)
 
 
 # ---------------------------------------------------------------------------
@@ -1450,25 +1495,32 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
     the other chips' witnesses are generated on the host and uploaded.
 
     Leaves `machine.last_device_prove`, a dict of what this prove planned
-    and where it generated witnesses: shard count, keep mode, the memory
-    model's shard high-water and budget, the chips, padded cells and
-    host-clock seconds of the witnesses made on the device (dispatch: the
-    device runs on asynchronously) or on the host and uploaded, and the
-    Poseidon2 kernel launches of the prove (printed to stderr under
-    LURK_TPU_PROVE_TIMING=1, so that a CLI run reports them)."""
+    and where it generated witnesses: shard count, keep mode, the budget
+    of the device's memory, the memory model's high-water of one shard
+    alone (`modeled_highwater_bytes`) and of the whole prove in its keep
+    mode (`modeled_prove_bytes`), the chips, padded cells and host-clock
+    seconds of the witnesses made on the device (dispatch: the device runs
+    on asynchronously) or on the host and uploaded, and the Poseidon2
+    kernel launches of the prove (printed to stderr under
+    LURK_TPU_PROVE_TIMING=1, so that a CLI run reports them). On a CUDA
+    device also the measured peaks: `peak_allocated_bytes`,
+    `peak_reserved_bytes` and `phase_peaks`, one dict per phase (its
+    allocated and reserved peaks, the allocated memory at its end and the
+    model's bytes for it)."""
     from ..lair.chips import chip_included
     from ..poseidon.cuda_kernel import permute_mont_cuda
     from .machine import MachineProof
-    from .hbm import (plan_shards, keep_rounds_fits, keep_light_fits,
-                      shard_highwater_bytes)
+    from . import hbm
 
     device = torch.device(device) if device is not None else default_device()
+    mem = _PhasePeaks(device)
     launches0 = permute_mont_cuda.launches
-    shards, hbm_budget = plan_shards(machine, queries, shard_config)
+    shards, hbm_budget = hbm.plan_shards(machine, queries, shard_config,
+                                         device)
     pv = queries.expect_public_values()
     stats = machine.last_device_prove = dict(
         shards=len(shards), budget_bytes=hbm_budget,
-        modeled_highwater_bytes=max(shard_highwater_bytes(machine, s)
+        modeled_highwater_bytes=max(hbm.shard_highwater_bytes(machine, s)
                                     for s in shards),
         device_witness_chips=0, device_witness_cells=0, device_witness_s=0.0,
         host_witness_chips=0, host_witness_cells=0, host_witness_s=0.0)
@@ -1497,20 +1549,16 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
     # only the roots and recommits each shard from its witness in pass 2
     # (device-made traces are generated again), so device memory is
     # bounded by one shard.
-    if keep_rounds_fits(machine, shards, hbm_budget):
-        keep_mode = "full"
-    elif keep_light_fits(machine, shards, hbm_budget):
-        keep_mode = "light"
-    else:
-        keep_mode = "none"
-    if len(shards) == 1 and keep_mode == "none":
-        keep_mode = "light"          # never commit one shard twice in full
+    keep_mode = hbm.keep_mode(machine, shards, hbm_budget)
     keep_rounds = keep_mode == "full"
     stats["keep_mode"] = keep_mode
+    modeled = hbm.prove_phases(machine, shards, keep_mode)
+    stats["modeled_prove_bytes"] = max(b for _, b in modeled)
     if _TIMING:
         print(f"[prove-timing] plan: {len(shards)} shard(s), keep mode "
-              f"{keep_mode}, modeled high-water "
-              f"{stats['modeled_highwater_bytes'] / 2**30:.2f} GiB, "
+              f"{keep_mode}, modeled prove "
+              f"{stats['modeled_prove_bytes'] / 2**30:.2f} GiB (one shard "
+              f"{stats['modeled_highwater_bytes'] / 2**30:.2f} GiB), "
               f"budget {hbm_budget / 2**30:.2f} GiB{_mem_str()}",
               file=_sys.stderr, flush=True)
     shard_chip_lists = []
@@ -1543,7 +1591,8 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
             stats[f"{kind}_witness_chips"] += 1
             stats[f"{kind}_witness_cells"] += mat.numel()
             stats[f"{kind}_witness_s"] += _time.perf_counter() - tc
-        t0 = _tlog(f"shard{shard.index} witness+upload", t0)
+        t0 = _tlog(f"shard{shard.index} witness+upload", t0, mem,
+                   f"shard{shard.index} witness")
         shard_chip_lists.append((chips, traces_np))
         rnd = dcommit(mats_dev, device, finalize=False)
         del mats_dev
@@ -1555,7 +1604,8 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
                 kept_light.append((rnd.matrices, rnd.groups,
                                    rnd.group_coeffs, rnd.widths,
                                    rnd.log_heights))
-        t0 = _tlog(f"shard{shard.index} main dcommit (deferred)", t0)
+        t0 = _tlog(f"shard{shard.index} main dcommit (deferred)", t0, mem,
+                   f"shard{shard.index} main commit")
         del rnd
     t0 = _time.perf_counter()
     if keep_rounds:
@@ -1586,7 +1636,8 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
             assert main_round.roots == roots, \
                 "coeff-rebuilt commitment diverged from pass 1"
             kept_light[si] = None
-            t0 = _tlog(f"shard{shard.index} lde-recommit", t0)
+            t0 = _tlog(f"shard{shard.index} lde-recommit", t0, mem,
+                       f"shard{shard.index} main recommit")
         else:
             # recommit (deterministic) from the witness: one extra commit
             # per shard for device memory bounded by a single shard
@@ -1594,16 +1645,24 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
                                   else t for t in traces_np], device)
             assert main_round.roots == roots, \
                 "device main commitment is not deterministic"
-            t0 = _tlog(f"shard{shard.index} recommit", t0)
+            t0 = _tlog(f"shard{shard.index} recommit", t0, mem,
+                       f"shard{shard.index} main recommit")
         ch = challenger.copy()
         shard_proofs.append(_device_prove_shard(
             machine, pk, prep_round, prep_names, shard, chips, traces_np,
-            main_round, pv, ch))
+            main_round, pv, ch, mem))
         _tlog(f"shard{shard.index} prove_shard total", t0)
         if keep_rounds:
             kept_rounds[si] = None        # fully consumed: free its trees
         del main_round
     stats["kernel_launches"] = permute_mont_cuda.launches - launches0
+    if mem.device is not None:
+        want = dict(modeled)
+        stats["phase_peaks"] = [
+            dict(phase=ph, allocated=a, reserved=r, resident=left,
+                 modeled=want.get(ph)) for ph, a, r, left in mem.peaks]
+        stats["peak_allocated_bytes"] = max(p[1] for p in mem.peaks)
+        stats["peak_reserved_bytes"] = max(p[2] for p in mem.peaks)
     if _TIMING:
         print(f"[prove-timing] device_prove: {len(shards)} shard(s), "
               f"{stats['kernel_launches']} Poseidon2 kernel launches",
@@ -1662,7 +1721,8 @@ def _host_chip_min_rows() -> int:
 
 
 def _device_prove_shard(machine, pk, prep_round, prep_names, shard, chips,
-                        traces_np, main_round: DRound, pv, ch):
+                        traces_np, main_round: DRound, pv, ch,
+                        mem: Optional[_PhasePeaks] = None):
     from ..lair.chips import chip_preprocessed
     from ..logup.trace import build_permutation_trace
     from .machine import ShardProof, ChipProof, host_quotient_chunk
@@ -1715,13 +1775,14 @@ def _device_prove_shard(machine, pk, prep_round, prep_names, shard, chips,
             else tuple(int(x) for x in dev_cums[cum_slots[i]])
             for i in range(len(chips))]
     del cum_devs, cum_slots
-    t0 = _tlog("  cums transfer (drains perm)", t0)
+    t0 = _tlog("  cums transfer (drains perm)", t0, mem,
+               f"shard{shard.index} perm trace")
     main_round.release_mats()
     perm_round = dcommit(perm_mats, device)
     perm_mats = [m if on_host[i] else None
                  for i, m in enumerate(perm_mats)]
     perm_round.release_mats()
-    t0 = _tlog("  perm dcommit", t0)
+    t0 = _tlog("  perm dcommit", t0, mem, f"shard{shard.index} perm commit")
     for root in perm_round.roots:
         ch.observe_many(root)
     for cum in cums:
@@ -1756,9 +1817,11 @@ def _device_prove_shard(machine, pk, prep_round, prep_names, shard, chips,
             builder, main_round.lde(i), prep_lde, perm_round.lde(i),
             pv, r, gamma, alpha, cums[i], log_h)
         quotient_mats.append(chunk)
-    t0 = _tlog("  quotient chunks (dispatch+host)", t0)
+    t0 = _tlog("  quotient chunks (dispatch+host)", t0, mem,
+               f"shard{shard.index} quotient")
     quotient_round = dcommit(quotient_mats, device)
-    t0 = _tlog("  quotient dcommit", t0)
+    t0 = _tlog("  quotient dcommit", t0, mem,
+               f"shard{shard.index} quotient commit")
     del quotient_mats
     for root in quotient_round.roots:
         ch.observe_many(root)
@@ -1798,7 +1861,7 @@ def _device_prove_shard(machine, pk, prep_round, prep_names, shard, chips,
 
     t0 = _tlog("  pre-open (points setup)", t0)
     pcs_proof = device_open_rounds(rounds, points, machine.config, ch)
-    _tlog("  open+fri", t0)
+    _tlog("  open+fri", t0, mem, f"shard{shard.index} open")
 
     chip_proofs = [
         ChipProof(c.name, main_round.log_heights[i], cums[i])

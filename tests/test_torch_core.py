@@ -1,9 +1,10 @@
 """The Lurk language in lurk_tpu_torch against lurk_tpu: evaluation, the
 toplevel and machine it builds, and the key cache.
 
-Each expression evaluates (native interpreter when cpp/liblair.so loads)
-to the same printed result and the same ZStore pointer (tag and Poseidon2
-digest) in both packages; build_lurk_toplevel gives the same funcs and
+Each expression (among them the reference's lcs bench and its sum bench
+at 1000 numbers, from benches/lurk_bench.py) evaluates (native interpreter
+when cpp/liblair.so loads) to the same printed result and the same ZStore
+pointer (tag and Poseidon2 digest) in both packages; build_lurk_toplevel gives the same funcs and
 new_machine the same chips; keys that lurk_tpu's setup_cached writes load
 in the port. Exact comparisons.
 """
@@ -13,6 +14,7 @@ import functools
 import pytest
 import torch
 
+from benches.lurk_bench import lcs_expr, sum_expr
 from lurk_tpu.core.eval_api import evaluate as j_evaluate
 from lurk_tpu.core.eval_direct import build_lurk_toplevel as j_build
 from lurk_tpu.core.stark_machine import new_machine as j_new_machine
@@ -36,6 +38,8 @@ PROGRAMS = [
     "(letrec ((f (lambda (n acc) (if (= n 0) acc (f (- n 1) (* acc n))))))"
     " (f 10 1))",                                          # letrec
     "(car (/ 1 0))",                                       # evaluation error
+    lcs_expr(),                         # the reference's lcs bench
+    sum_expr(1000),                     # its sum bench, at 1000 numbers
 ]
 
 

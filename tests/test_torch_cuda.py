@@ -1,6 +1,7 @@
 """lurk_tpu_torch on a CUDA card: the Poseidon2 kernel against its plain
-PyTorch version, the hasher's device path against the host path, and the
-golden proof. Every test skips without a card.
+PyTorch version, the hasher's device path against the host path, the
+golden proof, and a default-config prove in a process capped to the
+memory the planner's model asks for. Every test skips without a card.
 
 This file imports no jax (the card's machine has none), so it runs there
 without tests/conftest.py:
@@ -77,4 +78,33 @@ def test_golden_proof_on_card(cuda):
     machine, vk, proof, digest = golden.fib_proof(cuda)
     assert permute_mont_cuda.launches > before
     assert digest == golden.GOLDEN_FIB1000_SHA256
+    assert machine.verify(vk, proof, Challenger())
+
+
+def test_capped_default_config_prove_stays_inside_the_model(cuda):
+    """Demo fib 2^20 at the default config in a process capped by
+    set_per_process_memory_fraction at a limit whose budget the modeled
+    prove fills to 0.9: no OOM, the proof verifies, and the reserved peak
+    stays under the model."""
+    from lurk_tpu_torch.stark import hbm
+    from lurk_tpu_torch.stark.challenger import Challenger
+    from lurk_tpu_torch.stark.fri import FriConfig
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    machine, q = golden.fib_machine((1 << 20) - 8, FriConfig())
+    pk, vk = machine.setup()
+    shards, _ = hbm.plan_shards(machine, q, device=cuda)
+    modeled = hbm.modeled_prove_bytes(machine, shards, "full")
+    limit = hbm.limit_for_budget(int(modeled / 0.9))
+    total = torch.cuda.mem_get_info(cuda)[1]
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(limit / total, cuda)
+    try:
+        proof = machine.prove(pk, q, Challenger(), device=True)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, cuda)
+    stats = machine.last_device_prove
+    assert (stats["shards"], stats["keep_mode"]) == (1, "full")
+    assert stats["modeled_prove_bytes"] >= 0.8 * stats["budget_bytes"]
+    assert stats["peak_reserved_bytes"] <= stats["modeled_prove_bytes"]
     assert machine.verify(vk, proof, Challenger())
