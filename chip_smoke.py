@@ -6,7 +6,8 @@
 Phases (each raises on failure; nothing is caught):
   1. device: require CUDA; print the card's name and power limit, and
      whether cpp/liblair.so loads;
-  2. build: compile the Poseidon2 CUDA kernel (nvcc, sm_90a);
+  2. build: compile the CUDA kernels (nvcc, sm_90a), one nvcc for each
+     source (csrc/poseidon2.cu, csrc/quotient.cu), both at once;
   3. kernel vs plain: the kernel bit-equal to the plain PyTorch
      permutation at widths 16/24/32/40 (batch 2^16 and 2^16 + 3, chains of
      1 and 2) and to the scalar oracle poseidon/ref.py on a few states;
@@ -95,14 +96,22 @@ Phases (each raises on failure; nothing is caught):
      modeled prove at 0.8 of the budget or more;
  24. the reference's sum and lcs benches (benches/lurk_bench.py's
      sum_expr(100000) and lcs_expr()) evaluated and proved at the default
-     config on the whole card, cold and warm, byte-equal, verified.
+     config on the whole card, cold and warm, byte-equal, verified;
+ 25. the quotient kernels at full width: constraint_quotient and
+     logup_perm_phi (stark/quotient_kernel.py) bit-equal to their plain
+     versions on every chip of phase 10's shard 0 that runs on the
+     device, at its full height, each timed with CUDA events beside its
+     plain version and its bound.
 
 Every prove of phases 10, 16 and 22-24 starts from an emptied allocator
 cache and holds the memory model: the reserved peak is at most the
 modeled prove, and the modeled prove at most 1.5 times the reserved peak.
 
-Prints the kernels' JSON line, then the device line last. Every time is
-printed beside the card's name and power limit.
+Every proof path counts the launches of the three kernels
+(poseidon2_permute, constraint_quotient, logup_perm_phi) from zero and
+fails if a kernel it runs never launched. Prints the kernels' JSON line,
+then the device line last. Every time is printed beside the card's name
+and power limit.
 """
 
 import gzip
@@ -116,6 +125,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -158,6 +168,8 @@ from lurk_tpu_torch.parallel import multihost
 from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
 from lurk_tpu_torch.stark.challenger import Challenger
 from lurk_tpu_torch.stark.fri import FriConfig
+from lurk_tpu_torch.stark.quotient_kernel import (constraint_quotient,
+                                                  logup_perm_phi)
 from lurk_tpu_torch.utils import codec
 
 pid, nproc, port, code, shard_size = sys.argv[1:6]
@@ -172,7 +184,9 @@ proof = multihost.multihost_prove(machine, pk, q, Challenger(),
                                   device=True)
 torch.cuda.synchronize()
 dt = time.perf_counter() - t0
-launches = permute_mont_cuda.launches
+launches = {"poseidon2_permute": permute_mont_cuda.launches,
+            "constraint_quotient": constraint_quotient.launches,
+            "logup_perm_phi": logup_perm_phi.launches}
 if not machine.verify(vk, proof, Challenger()):
     raise AssertionError("the proof does not verify")
 if "jax" in sys.modules:
@@ -185,11 +199,54 @@ print(json.dumps({"pid": int(pid), "s": dt, "launches": launches,
 '''
 # H100 SXM data sheet: HBM3 at 3.35 TB/s
 HBM_BYTES_PER_S = 3.35e12
+P_FIELD = 2013265921
 
 
 def _sync():
     import torch
     torch.cuda.synchronize()
+
+
+# the kernels whose launches every path counts, by their JSON names
+KERNELS = ("poseidon2_permute", "constraint_quotient", "logup_perm_phi")
+
+
+def _kernel_fns() -> dict:
+    from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
+    from lurk_tpu_torch.stark.quotient_kernel import (constraint_quotient,
+                                                      logup_perm_phi)
+    return dict(zip(KERNELS, (permute_mont_cuda, constraint_quotient,
+                              logup_perm_phi)))
+
+
+def _zero_counts() -> None:
+    for fn in _kernel_fns().values():
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    return {k: fn.launches for k, fn in _kernel_fns().items()}
+
+
+def _since(before: dict) -> dict:
+    now = _counts()
+    return {k: now[k] - before[k] for k in KERNELS}
+
+
+def _add(*counts: dict) -> dict:
+    return {k: sum(c.get(k, 0) for c in counts) for k in KERNELS}
+
+
+def _launches(n: dict) -> str:
+    return "kernel launches " + ", ".join(f"{k} {n[k]}" for k in KERNELS)
+
+
+def _require(label: str, n: dict, kernels=KERNELS) -> None:
+    """Fail unless every kernel of `kernels` launched in the run counted
+    by `n`."""
+    missing = [k for k in kernels if n[k] <= 0]
+    if missing:
+        raise AssertionError(f"{label}: no launch of {missing} ({n})")
 
 
 def _gpu_line() -> str:
@@ -279,20 +336,20 @@ def _perm_bound(counts: dict, width: int, n_perm: int, sms: int,
 
 
 def _prove_lurk_golden(dev, shard_size, want, machine_queries,
-                       name: str = "Lurk proof"):
+                       name: str = "Lurk proof", kernels=KERNELS):
     """Prove an evaluated Lurk program (machine_queries, from
     golden.lurk_machine) on the card and hold its sha256 to `want`;
-    returns (seconds, kernel launches, the prove's stats)."""
-    from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
+    returns (seconds, kernel launches, the prove's stats). Every kernel
+    of `kernels` must launch."""
     from lurk_tpu_torch.stark import golden
     from lurk_tpu_torch.stark.challenger import Challenger
-    permute_mont_cuda.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     machine, vk, proof, digest = golden.lurk_proof(dev, shard_size,
                                                    machine_queries)
     _sync()
     dt = time.perf_counter() - t0
-    launches = permute_mont_cuda.launches
+    launches = _counts()
     stats = machine.last_device_prove
     if digest != want:
         raise AssertionError(f"{name} (shard size {shard_size}) sha256 "
@@ -300,10 +357,9 @@ def _prove_lurk_golden(dev, shard_size, want, machine_queries,
     if not machine.verify(vk, proof, Challenger()):
         raise AssertionError(f"{name} (shard size {shard_size}) does "
                              "not verify")
-    if launches <= 0 or stats["device_witness_chips"] <= 0:
-        raise AssertionError(f"{name}: {launches} kernel launches, "
-                             f"{stats['device_witness_chips']} device-made "
-                             "witnesses")
+    _require(name, launches, kernels)
+    if stats["device_witness_chips"] <= 0:
+        raise AssertionError(f"{name}: no device-made witness")
     return dt, launches, stats
 
 
@@ -326,7 +382,7 @@ def lurk_goldens(dev, on: str) -> None:
     if stats["shards"] != 1:
         raise AssertionError(f"one-shard golden ran {stats}")
     print(f"Lurk golden, one shard: sha256 matches, verified, {dt:.3f}s, "
-          f"{n} kernel launches, {stats['device_witness_chips']} device-made "
+          f"{_launches(n)}, {stats['device_witness_chips']} device-made "
           f"witnesses {on}")
     fits = (hbm.keep_rounds_fits, hbm.keep_light_fits)
     hbm.keep_rounds_fits = hbm.keep_light_fits = lambda *a: False
@@ -339,7 +395,7 @@ def lurk_goldens(dev, on: str) -> None:
     if stats["shards"] != 2 or stats["keep_mode"] != "none":
         raise AssertionError(f"2-shard golden ran {stats}")
     print(f"Lurk golden, 2 shards, keep mode none: sha256 matches, "
-          f"verified, {dt:.3f}s, {n} kernel launches {on}")
+          f"verified, {dt:.3f}s, {_launches(n)} {on}")
 
     # 9. device witness on the card == host witness
     print(f"device witness on the card == host witness "
@@ -383,7 +439,7 @@ def compiled_goldens(dev, on: str) -> int:
     from lurk_tpu_torch.core.stark_machine import PRODUCTION_CONFIG
     from lurk_tpu_torch.stark import golden, hbm
     from lurk_tpu_torch.stark.fri import FriConfig
-    total = 0
+    total = {}
     lurk = golden.lurk_machine(golden.LURK_PROGRAM, FriConfig(1, 8, 2),
                                compiled=True)
     cli = golden.lurk_machine(golden.CLI_PROGRAM, PRODUCTION_CONFIG,
@@ -414,11 +470,11 @@ def compiled_goldens(dev, on: str) -> int:
             os.environ.pop("LURK_TPU_DEVICE_CHIP_MIN_ROWS", None)
         if stats["shards"] != shards:
             raise AssertionError(f"compiled {label} ran {stats}")
-        total += n
+        total = _add(total, n)
         cells = stats["device_witness_cells"] + stats["host_witness_cells"]
         print(f"compiled golden {label}: {cells} padded cells, "
-              f"sha256 == lurk_tpu's {want}, verified, {dt:.3f}s, {n} kernel "
-              f"launches, keep mode {stats['keep_mode']}, "
+              f"sha256 == lurk_tpu's {want}, verified, {dt:.3f}s, "
+              f"{_launches(n)}, keep mode {stats['keep_mode']}, "
               f"{stats['device_witness_chips']} device-made witnesses {on}")
     print(f"compiled machine: device witness on the card == host witness "
           f"({_witness_parity(dev, lurk[0], lurk[1])} chip traces)")
@@ -447,16 +503,22 @@ def forced_paths(dev, on: str) -> int:
     from lurk_tpu_torch.stark.fri import FriConfig
     os.environ["LURK_TPU_DEVICE_CHIP_MIN_ROWS"] = "0"
     mq = golden.lurk_machine(golden.LURK_PROGRAM, FriConfig(1, 8, 2))[:2]
-    total = 0
+    total = {}
     try:
         for env in ({},) + FORCED_PATHS:
             os.environ.update(env)
+            # the DAG perm trace takes logup_perm_phi's place, the DAG
+            # quotients constraint_quotient's
+            kernels = [k for k in KERNELS if not (
+                k == "logup_perm_phi" and "LURK_TPU_GENERIC_PERM" in env
+                or k == "constraint_quotient" and "LURK_TPU_QUOT" in env)]
             try:
                 label = " ".join(f"{k}={v}" for k, v in env.items()) or \
                     "default paths"
                 dt, n, _ = _prove_lurk_golden(dev, None,
                                               golden.GOLDEN_LURK_SHA256, mq,
-                                              f"Lurk golden ({label})")
+                                              f"Lurk golden ({label})",
+                                              kernels)
                 events = ""
                 if env in ({}, PROFILED_PATH):
                     t0 = time.perf_counter()
@@ -470,10 +532,10 @@ def forced_paths(dev, on: str) -> int:
                 for k in env:
                     del os.environ[k]
             if env:
-                total += n
+                total = _add(total, n)
             print(f"Lurk golden, every chip on the device path, {label}: "
-                  f"sha256 == GOLDEN_LURK_SHA256, verified, {dt:.3f}s, {n} "
-                  f"kernel launches{events} {on}")
+                  f"sha256 == GOLDEN_LURK_SHA256, verified, {dt:.3f}s, "
+                  f"{_launches(n)}{events} {on}")
     finally:
         del os.environ["LURK_TPU_DEVICE_CHIP_MIN_ROWS"]
     return total
@@ -518,7 +580,6 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
     from lurk_tpu_torch.core.stark_machine import new_machine
     from lurk_tpu_torch.lair import native
     from lurk_tpu_torch.lair.execute import Shard, ShardingConfig
-    from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
     from lurk_tpu_torch.stark.challenger import Challenger
     from lurk_tpu_torch.stark.fri import FriConfig
     from lurk_tpu_torch.stark.key_cache import setup_cached
@@ -557,13 +618,13 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
     runs = []
     for run in ("cold", "warm"):
         torch.cuda.empty_cache()
-        permute_mont_cuda.launches = 0
+        _zero_counts()
         t0 = time.perf_counter()
         proof = machine.prove(pk, q, Challenger(), shard_config=cfg,
                               device=True)
         _sync()
         dt = time.perf_counter() - t0
-        n = permute_mont_cuda.launches
+        n = _counts()
         stats = machine.last_device_prove
         sha = hashlib.sha256(codec.encode(proof)).hexdigest()
         runs.append((dt, n, sha))
@@ -575,13 +636,13 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
               f"{stats['host_witness_s']:.3f}s for "
               f"{stats['host_witness_chips']} chips / "
               f"{stats['host_witness_cells']} cells, keep mode "
-              f"{stats['keep_mode']}, {_memory(stats)}, kernel launches "
-              f"{n}, sha256 {sha} {on}")
+              f"{stats['keep_mode']}, {_memory(stats)}, {_launches(n)}, "
+              f"sha256 {sha} {on}")
         _check_memory(f"{label}fib(100000) {run}", stats)
-        if n <= 0 or stats["device_witness_chips"] <= 0:
-            raise AssertionError(f"fib(100000): {n} kernel launches, "
-                                 f"{stats['device_witness_chips']} "
-                                 "device-made witnesses")
+        _require(f"{label}fib(100000) {run}", n)
+        if stats["device_witness_chips"] <= 0:
+            raise AssertionError(f"{label}fib(100000): no device-made "
+                                 "witness")
         if len(proof.shard_proofs) != want_shards:
             raise AssertionError(f"{len(proof.shard_proofs)} shards")
     if runs[0][2] != runs[1][2]:
@@ -641,28 +702,28 @@ def _default_prove(machine, pk, vk, q, label: str, on: str,
     the memory bounds and the proof to the verifier. Returns (sha256,
     the last run's launches and stats)."""
     import torch
-    from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
     from lurk_tpu_torch.stark.challenger import Challenger
     from lurk_tpu_torch.utils import codec
     shas = []
     for run in runs:
         torch.cuda.empty_cache()
-        permute_mont_cuda.launches = 0
+        _zero_counts()
         t0 = time.perf_counter()
         proof = machine.prove(pk, q, Challenger(), device=True)
         _sync()
         dt = time.perf_counter() - t0
-        n = permute_mont_cuda.launches
+        n = _counts()
         stats = machine.last_device_prove
         shas.append(hashlib.sha256(codec.encode(proof)).hexdigest())
         print(f"{label} {run} prove at the default config: "
               f"{stats['shards']} shard(s), keep mode {stats['keep_mode']}, "
-              f"{dt:.3f}s, {n} kernel launches, {_memory(stats)}, sha256 "
+              f"{dt:.3f}s, {_launches(n)}, {_memory(stats)}, sha256 "
               f"{shas[-1]} {on}")
         _check_memory(f"{label} {run} at the default config", stats)
-        if n <= 0 or len(proof.shard_proofs) != stats["shards"]:
-            raise AssertionError(f"{label}: {n} kernel launches, "
-                                 f"{len(proof.shard_proofs)} shard proofs")
+        _require(f"{label} {run}", n)
+        if len(proof.shard_proofs) != stats["shards"]:
+            raise AssertionError(f"{label}: {len(proof.shard_proofs)} shard "
+                                 "proofs")
     if len(set(shas)) != 1:
         raise AssertionError(f"{label}: the runs' proofs differ {shas}")
     t0 = time.perf_counter()
@@ -672,23 +733,24 @@ def _default_prove(machine, pk, vk, q, label: str, on: str,
     return shas[-1], n, stats
 
 
-def _plan_under(machine, q, limit: int):
-    """(shards, keep mode) that device_prove plans for a device limit."""
+def _plan_under(machine, q, limit: int, dev):
+    """(shards, keep mode) that device_prove plans on `dev` for a device
+    limit."""
     from lurk_tpu_torch.stark import hbm
-    shards, budget = hbm.plan_shards(machine, q, limit_bytes=limit)
-    return len(shards), hbm.keep_mode(machine, shards, budget)
+    shards, budget = hbm.plan_shards(machine, q, None, dev, limit_bytes=limit)
+    return len(shards), hbm.keep_mode(machine, shards, budget, dev)
 
 
-def _cap_for(machine, q, size: int, keep_mode: str) -> int:
+def _cap_for(machine, q, size: int, keep_mode: str, dev) -> int:
     """A device limit under which the planner picks `size`-row shards in
     `keep_mode`, with the modeled prove at 0.9 of its budget or above."""
     from lurk_tpu_torch.lair.execute import Shard, ShardingConfig
     from lurk_tpu_torch.stark import hbm
     shards = Shard(q, 0, ShardingConfig(size)).shard()
-    modeled = hbm.modeled_prove_bytes(machine, shards, keep_mode)
+    modeled = hbm.modeled_prove_bytes(machine, shards, keep_mode, dev)
     for share in (0.9, 0.95, 0.99, 1.0):
         limit = hbm.limit_for_budget(int(modeled / share))
-        if _plan_under(machine, q, limit) == (len(shards), keep_mode):
+        if _plan_under(machine, q, limit, dev) == (len(shards), keep_mode):
             return limit
     raise AssertionError(f"no device limit plans {len(shards)} shards in "
                          f"keep mode {keep_mode}")
@@ -712,10 +774,11 @@ def default_config_fib100k(on: str, mqs, eval_s: float, want_sha: str):
     if stats["keep_mode"] != "full":
         raise AssertionError(f"fib(100000) on the whole card planned {stats}")
     total = torch.cuda.mem_get_info()[1]
-    capped = 0
+    dev = torch.device("cuda", torch.cuda.current_device())
+    capped = {}
     for size, keep_mode in ((1 << 18, "full"), (1 << 18, "light"),
                             (1 << 17, "none")):
-        limit = _cap_for(machine, q, size, keep_mode)
+        limit = _cap_for(machine, q, size, keep_mode, dev)
         label = (f"fib(100000) capped at {limit / 2**30:.2f} GiB "
                  f"({limit / total:.4f} of the card)")
         torch.cuda.empty_cache()
@@ -725,7 +788,7 @@ def default_config_fib100k(on: str, mqs, eval_s: float, want_sha: str):
                                            runs=("warm",))
         finally:
             torch.cuda.set_per_process_memory_fraction(1.0)
-        capped += n
+        capped = _add(capped, n)
         share = stats["modeled_prove_bytes"] / stats["budget_bytes"]
         want = (FIB100K_SHARDS if size == FIB100K_SHARD_SIZE else
                 2 * FIB100K_SHARDS, keep_mode)
@@ -787,14 +850,12 @@ class _TimedProves:
         repl.prove_last_reduction = self
 
     def __call__(self):
-        from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
         cells = self.repl.machine()._trace_cells(self.repl.queries, None)
-        n0 = permute_mont_cuda.launches
+        n0 = _counts()
         t0 = time.perf_counter()
         key = self.inner()
         _sync()
-        self.runs.append((cells, time.perf_counter() - t0,
-                          permute_mont_cuda.launches - n0))
+        self.runs.append((cells, time.perf_counter() - t0, _since(n0)))
         return key
 
 
@@ -803,18 +864,17 @@ def _load_demo(repl, timed, lurk_dir: Path, name: str):
     the cache; check every proof file it writes against lurk_tpu's sha256
     (where deterministic) and `!(verify)` it. Returns (seconds, kernel
     launches, proof files, the proves' (cells, seconds, launches))."""
-    from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
     from lurk_tpu_torch.stark import golden
     for path in _proofs(lurk_dir):
         path.unlink()
     timed.runs.clear()
     repl.process("!(clear)")
-    permute_mont_cuda.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     repl.load_file(ROOT / "demo" / f"{name}.lurk")
     _sync()
     dt = time.perf_counter() - t0
-    launches = permute_mont_cuda.launches
+    launches = _counts()
     got = {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
            for p in sorted(_proofs(lurk_dir))}
     if len(got) != len(timed.runs):
@@ -842,23 +902,24 @@ def repl_corpus(on: str, lurk_dir: Path):
     timed = _TimedProves(repl)
     print(f"REPL at {repl.config}: built in {time.perf_counter() - t0:.3f}s "
           f"{on}")
-    total = 0
+    total = {}
     cells = {}
     for label in ("cold", "warm"):
         for name in golden.DEMO_FILES:
             dt, launches, got, runs = _load_demo(repl, timed, lurk_dir, name)
-            if got and launches <= 0:
-                raise AssertionError(f"{name}: no kernel launch")
+            if got:
+                _require(name, launches, KERNELS[:1])
             if label == "cold":
-                total += launches
+                total = _add(total, launches)
             if len(runs) == 1 and name in golden.DEMO_PROOF_SHA256:
                 cells[name] = runs[0][0]
-            proves = ", ".join(f"{c} cells {s:.3f}s {n} launches"
+            proves = ", ".join(f"{c} cells {s:.3f}s "
+                               f"{n['poseidon2_permute']} Poseidon2 launches"
                                for c, s, n in runs) or "none"
             held = ("== lurk_tpu's" if name in golden.DEMO_PROOF_SHA256
                     else "not held (!(rand))" if got else "-")
             print(f"REPL {label} {name}.lurk: {dt:.3f}s, {len(got)} proofs "
-                  f"({proves}), {launches} kernel launches, sha256 {held}, "
+                  f"({proves}), {_launches(launches)}, sha256 {held}, "
                   f"verified {on}")
     # the smallest demo proof: host prover (LURK_TPU_PROVE=host) against
     # the card, in turns
@@ -870,11 +931,11 @@ def repl_corpus(on: str, lurk_dir: Path):
             _, launches, _, runs = _load_demo(repl, timed, lurk_dir, name)
         finally:
             os.environ.pop("LURK_TPU_PROVE", None)
-        if (launches > 0) != (prover == "device"):
-            raise AssertionError(f"{prover} prover: {launches} launches")
+        if (launches["poseidon2_permute"] > 0) != (prover == "device"):
+            raise AssertionError(f"{prover} prover: {launches}")
         print(f"smallest demo proof ({name}.lurk, {runs[0][0]} cells) on "
-              f"the {prover} prover: !(prove) {runs[0][1]:.3f}s, {launches} "
-              f"kernel launches, sha256 == lurk_tpu's {on}")
+              f"the {prover} prover: !(prove) {runs[0][1]:.3f}s, "
+              f"{_launches(launches)}, sha256 == lurk_tpu's {on}")
     repl.prove_last_reduction = timed.inner
     return repl, total
 
@@ -905,18 +966,20 @@ def cli_load(on: str, lurk_dir: Path) -> int:
     if (key, sha) != (golden.CLI_PROOF_KEY, golden.CLI_PROOF_SHA256):
         raise AssertionError(f"CLI proof {key} sha256 {sha} != lurk_tpu's "
                              f"{golden.CLI_PROOF_KEY} {golden.CLI_PROOF_SHA256}")
-    launches = [int(n) for n in re.findall(
-        r"\[prove-timing\] device_prove: .* (\d+) Poseidon2 kernel launches",
-        res.stderr)]
-    if len(launches) != 1 or launches[0] <= 0:
-        raise AssertionError(f"CLI prove launches {launches}")
+    found = re.findall(
+        r"\[prove-timing\] device_prove: .* (\d+) Poseidon2 kernel "
+        r"launches, (\d+) constraint_quotient launches, (\d+) "
+        r"logup_perm_phi launches", res.stderr)
+    if len(found) != 1:
+        raise AssertionError(f"CLI prove launches {found}")
+    launches = dict(zip(KERNELS, map(int, found[0])))
+    _require("CLI load --prove", launches, KERNELS[:1])
     timing = [l for l in res.stderr.splitlines()
               if l.startswith("[prove-timing]")]
     print("\n".join(f"  cli {l}" for l in timing))
     print(f"CLI load --prove fib(1000): exit 0 in {dt:.3f}s (process), "
-          f"{launches[0]} kernel launches, proof sha256 == lurk_tpu's "
-          f"{sha} {on}")
-    return launches[0]
+          f"{_launches(launches)}, proof sha256 == lurk_tpu's {sha} {on}")
+    return launches
 
 
 def microchain_round_trip(on: str, repl) -> int:
@@ -926,7 +989,6 @@ def microchain_round_trip(on: str, repl) -> int:
     import socket
     from lurk_tpu_torch.cli import microchain
     from lurk_tpu_torch.cli.repl import Repl
-    from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -945,22 +1007,21 @@ def microchain_round_trip(on: str, repl) -> int:
     repl.process("!(clear)")
     repl.process(f"!(def s0 {MICROCHAIN_STATE})")
     repl.process(f'!(def id !(microchain-start "{addr}" s0))')
-    permute_mont_cuda.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     repl.process(f'!(defq s1 !(microchain-transition "{addr}" id s0 7))')
     repl.process(f'!(defq s2 !(microchain-transition "{addr}" id s1 10))')
     _sync()
     dt = time.perf_counter() - t0
-    launches = permute_mont_cuda.launches
-    if launches <= 0:
-        raise AssertionError("microchain transitions: no kernel launch")
+    launches = _counts()
+    _require("microchain transitions", launches, KERNELS[:1])
     total = repl.fmt(repl.process("(car s2)"))
     if total != "17":
         raise AssertionError(f"microchain state total {total} != 17")
     if repl.process(f'!(microchain-verify "{addr}" id)') != repl.zstore.t:
         raise AssertionError("microchain history does not verify")
     print(f"microchain: 2 transitions proved on the card and accepted in "
-          f"{dt:.3f}s, {launches} kernel launches, history verified {on}")
+          f"{dt:.3f}s, {_launches(launches)}, history verified {on}")
     return launches
 
 
@@ -1068,19 +1129,18 @@ def mesh_prove_fib100k(dev, on: str, mqs, want_sha: str) -> int:
     from lurk_tpu_torch.parallel import mesh as pmesh
     from lurk_tpu_torch.parallel.shard_prover import (
         mesh_cumulative_balance, mesh_prove)
-    from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
     from lurk_tpu_torch.stark.challenger import Challenger
     from lurk_tpu_torch.utils import codec
     machine, pk, vk, q, cfg = mqs
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    permute_mont_cuda.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     proof = mesh_prove(machine, pk, q, Challenger(), devices=[dev, dev],
                        shard_config=cfg)
     _sync()
     dt = time.perf_counter() - t0
-    launches = permute_mont_cuda.launches
+    launches = _counts()
     sha = hashlib.sha256(codec.encode(proof)).hexdigest()
     if sha != want_sha:
         raise AssertionError(f"mesh_prove fib(100000) sha256 {sha} != the "
@@ -1089,11 +1149,11 @@ def mesh_prove_fib100k(dev, on: str, mqs, want_sha: str) -> int:
         raise AssertionError("mesh_prove fib(100000) does not verify")
     balance = mesh_cumulative_balance(pmesh.Mesh([dev, dev], ("shard",)),
                                       proof.shard_proofs)
-    if balance != (0, 0, 0, 0) or launches <= 0:
-        raise AssertionError(f"mesh_prove: balance {balance}, {launches} "
-                             "kernel launches")
+    if balance != (0, 0, 0, 0):
+        raise AssertionError(f"mesh_prove: balance {balance}")
+    _require("mesh_prove", launches)
     print(f"mesh_prove fib(100000), {len(proof.shard_proofs)} shards over 2 "
-          f"slots on {dev}: {dt:.3f}s, {launches} kernel launches, peak "
+          f"slots on {dev}: {dt:.3f}s, {_launches(launches)}, peak "
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB, balance 0, == checked-in proof's {sha}, verified {on}")
     return launches
@@ -1105,7 +1165,6 @@ def mesh_commit_fib100k(dev, on: str, mqs, want_sha: str) -> int:
     launches."""
     import torch
     from lurk_tpu_torch.parallel import ntt_mesh
-    from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
     from lurk_tpu_torch.stark import device_prover
     from lurk_tpu_torch.stark.challenger import Challenger
     from lurk_tpu_torch.utils import codec
@@ -1130,14 +1189,14 @@ def mesh_commit_fib100k(dev, on: str, mqs, want_sha: str) -> int:
     device_prover.dcommit = counting_dcommit
     try:
         torch.cuda.empty_cache()
-        permute_mont_cuda.launches = 0
+        _zero_counts()
         calls = ntt_mesh.mesh_lde.calls
         t0 = time.perf_counter()
         proof = machine.prove(pk, q, Challenger(), shard_config=cfg,
                               device=True)
         _sync()
         dt = time.perf_counter() - t0
-        launches = permute_mont_cuda.launches
+        launches = _counts()
         routed = ntt_mesh.mesh_lde.calls - calls
     finally:
         device_prover.dcommit = real_dcommit
@@ -1148,16 +1207,17 @@ def mesh_commit_fib100k(dev, on: str, mqs, want_sha: str) -> int:
     if sha != want_sha:
         raise AssertionError(f"mesh-commit fib(100000) sha256 {sha} != the "
                              f"checked-in proof's {want_sha}")
-    if len(main_routed) != shards or min(main_routed) < 1 or launches <= 0:
+    if len(main_routed) != shards or min(main_routed) < 1:
         raise AssertionError(f"mesh commit: groups through mesh_lde by "
                              f"shard's main commit {main_routed} for {shards} "
-                             f"shards, {launches} kernel launches")
+                             "shards")
+    _require("mesh commit", launches)
     if not machine.verify(vk, proof, Challenger()):
         raise AssertionError("mesh-commit fib(100000) does not verify")
     print(f"mesh commit fib(100000) over 4 slots on {dev}, budget "
           f"{MESH_COMMIT_CELLS} LDE cells: {routed} groups through mesh_lde "
           f"({shards} shards; main commits by shard {main_routed}), "
-          f"{dt:.3f}s, {launches} kernel launches, peak device memory "
+          f"{dt:.3f}s, {_launches(launches)}, peak device memory "
           f"{machine.last_device_prove['peak_allocated_bytes'] / 2**30:.2f} "
           f"GiB, == checked-in proof's {sha}, verified {on}")
     return launches
@@ -1196,18 +1256,216 @@ def multihost_fib100k(on: str, want_sha: str) -> int:
                                  f"{out}\n{err[-4000:]}")
         results.append(json.loads(out.strip().splitlines()[-1]))
     for r in results:
-        if r["sha256"] != want_sha or r["shards"] != FIB100K_SHARDS or \
-                r["launches"] <= 0:
+        if r["sha256"] != want_sha or r["shards"] != FIB100K_SHARDS:
             raise AssertionError(f"multihost child {r}: expected "
                                  f"{FIB100K_SHARDS} shards, sha256 {want_sha}")
+        _require(f"multihost process {r['pid']}", r["launches"])
         print(f"multihost process {r['pid']} of 2 on cuda:0 (shards "
               f"{r['pid']} and {r['pid'] + 2}): multihost_prove {r['s']:.3f}s, "
-              f"{r['launches']} kernel launches, peak device memory "
+              f"{_launches(r['launches'])}, peak device memory "
               f"{r['peak'] / 2**30:.2f} GiB, full proof == checked-in "
               f"proof's {r['sha256']}, verified {on}")
     print(f"multihost fib(100000): both processes done in {dt:.3f}s "
           f"(process start, evaluation, setup, prove, verify) {on}")
-    return sum(r["launches"] for r in results)
+    return _add(*(r["launches"] for r in results))
+
+
+# Pipe-slot model of the field arithmetic of the quotient kernels, per thread:
+# a multiply is one Montgomery product (IMAD.WIDE for a*b and for m*p, two
+# FMA-pipe slots each, and IMAD for m: 5 slots), an add or subtract two
+# integer-ALU slots (the add and a min). An extension multiply is 16
+# products, 3 by W and 12 adds. The fewest operations for an extension
+# inverse: three Frobenius maps (8 products by constants), two extension
+# multiplies, the norm's c0 alone (5 products, 3 adds), an inverse in the
+# base field (31 multiplies: no addition chain for p - 2 is shorter) and
+# the scaling by it (4).
+_MUL_SLOTS, _ADD_SLOTS = 5, 2
+_EXT_MUL = (19, 12)
+_EXT_INV = (8 + 2 * 19 + 5 + 31 + 4, 2 * 12 + 3)
+
+
+def _weight_ops(w: np.ndarray) -> tuple:
+    """(multiplies, adds) per row of the weighted sums of a (T, n[, 4])
+    weight array, as this run's weights need them: a product for each
+    weight other than 0 and +-1, an add for each nonzero one."""
+    nz = w != 0
+    return int((nz & (w != 1) & (w != P_FIELD - 1)).sum()), int(nz.sum())
+
+
+def _quotient_ops(qi, rows: int) -> tuple:
+    """(multiplies, adds) of constraint_quotient over `rows` LDE rows."""
+    from lurk_tpu_torch.stark.constraint_vm import OP_MUL
+    codes = qi.prog.ops[:, 0]
+    muls = int((codes == OP_MUL).sum())
+    adds = len(codes) - muls
+    muls += 4 * qi.prog.n_cons            # the fold: ext * base, ext add
+    adds += 4 * qi.prog.n_cons
+    for w in (qi.plan["tw"], qi.plan["mw"]):    # fingerprints, multiplicities
+        m, a = _weight_ops(w)
+        muls, adds = muls + m, adds + a
+    em, ea = _EXT_MUL
+    muls += qi.nb * (3 * em + 8)          # lhs, weight; rhs by m0, m1
+    adds += qi.nb * (3 * ea + 20)         # phi sums, rhs, lhs - rhs, fold
+    muls += 3 * (em + 4)                  # the three running-sum terms
+    adds += 3 * (ea + 4) + 16
+    return rows * muls, rows * adds
+
+
+def _perm_ops(plan_arrays, nb: int, rows: int) -> tuple:
+    """(multiplies, adds) that logup_perm_phi's function needs over `rows`
+    trace rows: the fingerprints and multiplicities; the inverses of the k
+    fingerprints that vary by row as one batch over all rows (Montgomery's
+    trick: 3 extension multiplies each and one extension inverse); one
+    inverse of each constant nonzero fingerprint; each contribution scaled
+    by its multiplicity; the pair sums."""
+    t = _terms(plan_arrays["tw"]) > 0
+    const = ~t & (plan_arrays["dconst"] != 0).any(axis=1)
+    k, live = int(t.sum()), int((t | const).sum())
+    muls, adds = 0, 4 * nb
+    for w in (plan_arrays["tw"], plan_arrays["mw"]):
+        m, a = _weight_ops(w)
+        muls, adds = muls + m, adds + a
+    muls, adds = rows * (muls + 4 * live), rows * adds
+    batch = max(3 * (k * rows - 1), 0)
+    n_inv = (k > 0) + int(const.sum())
+    return (muls + batch * _EXT_MUL[0] + n_inv * _EXT_INV[0],
+            adds + batch * _EXT_MUL[1] + n_inv * _EXT_INV[1])
+
+
+def _terms(idx_w: np.ndarray) -> np.ndarray:
+    """Nonzero-weight terms of each interaction of a (T, n[, 4]) weight
+    array."""
+    w = idx_w if idx_w.ndim == 3 else idx_w[..., None]
+    return (w != 0).any(axis=2).sum(axis=0)
+
+
+def _kernel_bound(n_bytes: int, muls: int, adds: int, sms: int,
+                  clock_hz: float) -> tuple:
+    """(bound ms, "bytes" | "operations"): the bytes over HBM against the
+    busier of the FMA and ALU pipes (64 thread-instructions each per SM
+    per clock) at the card's maximum SM clock."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    slots = max(muls * _MUL_SLOTS, adds * _ADD_SLOTS) / 64
+    ops_ms = slots / (sms * clock_hz) * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else \
+        (ops_ms, "operations")
+
+
+def quotient_kernels_full_width(dev, on: str, mqs) -> dict:
+    """Phase 25: constraint_quotient and logup_perm_phi against their plain
+    versions on the card, bit for bit, on every chip of phase 10's shard 0
+    (ShardingConfig(262144)) that the prover runs on the device, at its
+    full height (eval_builtin_expr: 524,288 LDE rows), on random LDE and
+    trace columns read in place from a wider matrix; each chip's kernel and
+    plain times (CUDA events) and bound. Returns each kernel's totals over
+    the shard's chips: ms, plain ms, bound ms and what bounds it, the
+    largest absolute error."""
+    import torch
+    from lurk_tpu_torch.lair.chips import chip_included
+    from lurk_tpu_torch.lair.execute import Shard
+    from lurk_tpu_torch.stark import device_prover as dp
+    from lurk_tpu_torch.stark import quotient_kernel as qk
+    machine, _, _, q, cfg = mqs
+    shard = Shard(q, 0, cfg).shard()[0]
+    pv = q.expect_public_values()
+    rng = np.random.default_rng(25)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = _max_sm_clock_hz()
+
+    def ext():
+        return tuple(int(v) for v in rng.integers(0, P_FIELD, 4))
+
+    def columns(rows, widths):
+        total = sum(widths) + 3 + (sum(widths) % 2 == 0)
+        whole = torch.randint(0, P_FIELD, (rows, total), dtype=torch.int32,
+                              device=dev)
+        out, off = [], 1
+        for w in widths:
+            out.append(whole[:, off:off + w] if w else None)
+            off += w
+        return out
+
+    tot = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                   max_abs_err=0, chips=0) for k in KERNELS[1:]}
+    for chip in machine.chips:
+        rows = chip.num_rows(shard) if chip_included(chip, shard) else 0
+        if rows < dp._host_chip_min_rows():
+            continue
+        builder = machine.builder_for(chip)
+        plan = dp.plan_for(builder)
+        log_h = max(rows - 1, 0).bit_length()
+        h, big = 1 << log_h, 2 << log_h
+        nb = (len(builder.interactions) + 1) // 2
+        main, prep, perm = columns(big, [builder.main_width,
+                                         builder.preprocessed_width,
+                                         4 * (nb + 1)])
+        qi = dp.quotient_inputs(builder, main, prep, perm, pv, ext(), ext(),
+                                ext(), ext(), log_h)
+        got, want = qk.constraint_quotient(qi), qk.quotient_plain(qi)
+        _sync()
+        err = int((got.long() - want).abs().max())
+        if not torch.equal(got.long(), want):
+            raise AssertionError(f"constraint_quotient != plain on "
+                                 f"{chip.name} ({big} LDE rows, max abs err "
+                                 f"{err})")
+        del got, want
+        widths = builder.main_width + builder.preprocessed_width
+        n_bytes = 4 * big * (widths + 4 * (nb + 1)) + 24 * big + 16 * big
+        b_ms, b_by = _kernel_bound(n_bytes, *_quotient_ops(qi, big), sms,
+                                   clock)
+        k_ms = _event_ms(lambda: qk.constraint_quotient(qi), 3)
+        p_ms = _event_ms(lambda: qk.quotient_plain(qi), 1)
+        runs = [("constraint_quotient", big, k_ms, p_ms, b_ms, b_by, err,
+                 n_bytes)]
+        del main, prep, perm, qi
+        if builder.interactions and plan is not None:
+            main, prep = columns(h, [builder.main_width,
+                                     builder.preprocessed_width])
+            a = dp._plan_arrays(plan, pv, ext(), ext(), pad_d_one=False,
+                                n_keep=2 * nb)
+            got = torch.empty((h, 4 * (nb + 1)), dtype=torch.int32,
+                              device=dev)
+            want = got.clone()
+            qk.logup_perm_phi(got, main, prep, a, plan.n_inter_padded)
+            qk.perm_phi_plain(want, main, prep, a, plan.n_inter_padded)
+            _sync()
+            err = int((got[:, :4 * nb].long() - want[:, :4 * nb].long())
+                      .abs().max())
+            if not torch.equal(got[:, :4 * nb], want[:, :4 * nb]):
+                raise AssertionError(f"logup_perm_phi != plain on "
+                                     f"{chip.name} ({h} rows, max abs err "
+                                     f"{err})")
+            n_bytes = 4 * h * widths + 16 * h * nb
+            b_ms, b_by = _kernel_bound(n_bytes, *_perm_ops(a, nb, h), sms,
+                                       clock)
+            k_ms = _event_ms(lambda: qk.logup_perm_phi(
+                got, main, prep, a, plan.n_inter_padded), 3)
+            p_ms = _event_ms(lambda: qk.perm_phi_plain(
+                want, main, prep, a, plan.n_inter_padded), 1)
+            runs.append(("logup_perm_phi", h, k_ms, p_ms, b_ms, b_by, err,
+                         n_bytes))
+            del main, prep, got, want
+        for name, n_rows, k_ms, p_ms, b_ms, b_by, err, n_bytes in runs:
+            t = tot[name]
+            t["ms"] += k_ms
+            t["plain_ms"] += p_ms
+            t["bound_ms"] += b_ms
+            t["bytes_ms"] += n_bytes / HBM_BYTES_PER_S * 1e3
+            t["max_abs_err"] = max(t["max_abs_err"], err)
+            t["chips"] += 1
+            print(f"{name} == plain on {chip.name}, {n_rows} rows: kernel "
+                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}) = {b_ms / k_ms:.3f} of the kernel's time {on}")
+    for name, t in tot.items():
+        t["bound_by"] = "bytes" if t.pop("bytes_ms") >= t["bound_ms"] \
+            else "operations"
+        print(f"{name} over shard 0's {t['chips']} device chips "
+              f"({sms} SMs at {clock / 1e6:.0f} MHz): kernel {t['ms']:.4f} "
+              f"ms, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
+              f"ms, max abs err {t['max_abs_err']} {on}")
+        del t["chips"]
+    torch.cuda.empty_cache()
+    return tot
 
 
 def main() -> int:
@@ -1221,7 +1479,7 @@ def main() -> int:
     from lurk_tpu_torch.lair import native
     from lurk_tpu_torch.poseidon import cuda_kernel, perm, ref
     from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
-    from lurk_tpu_torch.stark import golden, hasher
+    from lurk_tpu_torch.stark import golden, hasher, quotient_kernel
     from lurk_tpu_torch.stark.challenger import Challenger
     from lurk_tpu_torch.stark.fri import FriConfig
     from lurk_tpu_torch.utils import codec
@@ -1237,10 +1495,14 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
     print(f"native liblair available: {native.native_available()}")
 
-    # 2. build
+    # 2. build: one nvcc for each source, all started together
     t0 = time.perf_counter()
-    lib = cuda_kernel.build(verbose=True)
-    print(f"build: {time.perf_counter() - t0:.3f}s {lib.name} {on}")
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(b.build, verbose=True)
+                  for b in (cuda_kernel, quotient_kernel)]
+        lib, qlib = (f.result() for f in builds)
+    print(f"build: {time.perf_counter() - t0:.3f}s {lib.name} {qlib.name} "
+          f"{on}")
     torch.ones(1, device=dev)
     free, total = torch.cuda.mem_get_info(dev)
     outside = total - free - torch.cuda.memory_reserved(dev)
@@ -1320,14 +1582,13 @@ def main() -> int:
           f"{on}")
     if cells != SLICE_CELLS:
         raise AssertionError(f"padded cells {cells} != {SLICE_CELLS}")
-    permute_mont_cuda.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     proof = machine.prove(pk, q, Challenger(), device=True)
     _sync()
     cold = time.perf_counter() - t0
-    launches = permute_mont_cuda.launches
-    if launches <= 0:
-        raise AssertionError("the slice never launched the Poseidon2 kernel")
+    launches = _counts()
+    _require("the slice", launches)
     if len(proof.shard_proofs) != 1:
         raise AssertionError(f"{len(proof.shard_proofs)} shards, expected 1")
     cold_sha = hashlib.sha256(codec.encode(proof)).hexdigest()
@@ -1347,7 +1608,7 @@ def main() -> int:
     print(f"slice fib({SLICE_N}) cells {cells}: prove cold {cold:.3f}s, "
           f"warm {warm:.3f}s ({cells / warm:.1f} cells/s), verify "
           f"{vt:.3f}s, peak device memory {peak / 2**30:.2f} GiB, "
-          f"kernel launches {launches}, proof sha256 {sha} {on}")
+          f"{_launches(launches)}, proof sha256 {sha} {on}")
 
     # 7. throughput at bench.py's shape
     iters = 64
@@ -1429,42 +1690,62 @@ def main() -> int:
     marks.append(("phases 22-23", time.perf_counter()))
     bench_launches = default_config_benches(on, fib_mqs, *fib_pipeline[:2])
     marks.append(("phase 24", time.perf_counter()))
+
+    # 25. this slice: the quotient kernels at full width
+    quotient = quotient_kernels_full_width(dev, on, fib_mqs)
+    marks.append(("phase 25", time.perf_counter()))
     del fib_mqs, fib_pipeline
     print("wall seconds: " + ", ".join(
         f"{label} {t - prev:.1f}" for (label, t), prev in
         zip(marks, [t_start] + [t for _, t in marks[:-1]])) + f" {on}")
 
-    print(json.dumps({"kernels": [{
+    by_path = {"demo_fib_2^20": launches,
+               "lurk_fib100000": fib_launches,
+               "repl_demo_corpus": repl_launches,
+               "cli_load": cli_launches,
+               "microchain": chain_launches,
+               "compiled_goldens": compiled_launches,
+               "forced_dag_paths": forced_launches,
+               "compiled_fib100000": compiled_fib_launches,
+               "mesh_blocks": {"poseidon2_permute": mesh_block_launches},
+               "mesh_prove_fib100000": mesh_prove_launches,
+               "mesh_commit_fib100000": mesh_commit_launches,
+               "multihost_fib100000": multihost_launches,
+               "lurk_fib100000_default_config": default_launches,
+               "lurk_fib100000_capped": capped_launches,
+               "lurk_lcs_default_config": bench_launches["lcs"],
+               "lurk_sum100000_default_config":
+                   bench_launches["sum(100000)"]}
+    kernels = [{
         "name": "poseidon2_permute",
         "route": "cuda",
         "source": "lurk_tpu_torch/csrc/poseidon2.cu",
         "replaces": "lurk_tpu/poseidon/tpu_kernel.py:132",
-        "launches": fib_launches,
-        "launches_by_path": {"demo_fib_2^20": launches,
-                             "lurk_fib100000": fib_launches,
-                             "repl_demo_corpus": repl_launches,
-                             "cli_load": cli_launches,
-                             "microchain": chain_launches,
-                             "compiled_goldens": compiled_launches,
-                             "forced_dag_paths": forced_launches,
-                             "compiled_fib100000": compiled_fib_launches,
-                             "mesh_blocks": mesh_block_launches,
-                             "mesh_prove_fib100000": mesh_prove_launches,
-                             "mesh_commit_fib100000": mesh_commit_launches,
-                             "multihost_fib100000": multihost_launches,
-                             "lurk_fib100000_default_config":
-                                 default_launches,
-                             "lurk_fib100000_capped": capped_launches,
-                             "lurk_lcs_default_config": bench_launches["lcs"],
-                             "lurk_sum100000_default_config":
-                                 bench_launches["sum(100000)"]},
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": bounds[16][0],
         "bound_by": bounds[16][1],
-        "library_ms": None,
-    }]}))
+    }, {
+        "name": "constraint_quotient",
+        "route": "cuda",
+        "source": "lurk_tpu_torch/csrc/quotient.cu",
+        "replaces": "lurk_tpu/stark/device_prover.py:1299",
+        **quotient["constraint_quotient"],
+    }, {
+        "name": "logup_perm_phi",
+        "route": "cuda",
+        "source": "lurk_tpu_torch/csrc/quotient.cu",
+        "replaces": "lurk_tpu/stark/device_prover.py:933",
+        **quotient["logup_perm_phi"],
+    }]
+    for k in kernels:
+        name = k["name"]
+        k["launches"] = fib_launches[name]
+        k["launches_by_path"] = {path: n[name] for path, n in by_path.items()
+                                 if name in n}
+        k["library_ms"] = None
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

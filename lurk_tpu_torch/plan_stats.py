@@ -6,11 +6,16 @@ Evaluates benches/lurk_bench.py's fib program with the native
 interpreter, splits it at ShardingConfig(shard_size) on the full Lurk
 machine and prints, per shard and chip: rows, padded height, main and
 LogUp perm widths, whether the device prover takes the chip's witness and
-perm/quotient on the device, its constraint-VM instructions and the row
-chunks the VM runs them over. Totals: padded main cells, perm cells, and
-the eager torch launches the constraint VM dispatches per prove (two per
-instruction and chunk: the operation and its reduction), over the chips
-on the device path. These are counts, not times.
+perm/quotient on the device, its constraint-VM instructions, the row
+chunks the plain (eager torch) VM runs them over and the launches of the
+constraint_quotient kernel. Totals over the chips on the device path:
+padded main cells, perm cells, the launches of the two kernels of
+stark/quotient_kernel.py per prove on a card (constraint_quotient: one
+per chip and launch_rows chunk; logup_perm_phi: one per chip with
+interactions), and beside them the eager torch launches the plain
+constraint VM dispatches per prove (two per instruction and chunk: the
+operation and its reduction), which is what a card ran before the
+kernels. These are counts, not times.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ def main(argv=None) -> int:
     from .logup.trace import perm_trace_width
     from .stark import device_prover as dp
     from .stark.fri import FriConfig
+    from .stark.quotient_kernel import launch_rows
 
     toplevel, zstore, _ = build_lurk_toplevel()
     code = ("(letrec ((fib (lambda (n) (if (<= n 1) n "
@@ -43,9 +49,10 @@ def main(argv=None) -> int:
     machine = new_machine(toplevel, FriConfig())
     shards = Shard(queries, 0, ShardingConfig(args.shard_size)).shard()
     min_rows = dp._host_chip_min_rows()
-    main_cells = perm_cells = vm_launches = 0
+    main_cells = perm_cells = vm_launches = quotient_launches = 0
+    perm_launches = 0
     print("shard chip rows height width perm_width device_path vm_ops "
-          "vm_chunks")
+          "vm_chunks quotient_launches")
     for shard in shards:
         for chip in machine.chips:
             if not chip_included(chip, shard):
@@ -64,15 +71,22 @@ def main(argv=None) -> int:
             big = 2 * height
             chunks = -(-big // min(big, dp._vm_rows(prog.n_regs
                                                     + 2 * x_width)))
+            launches = -(-big // launch_rows(prog.n_regs, big))
             if on_device:
                 vm_launches += 2 * len(prog.ops) * chunks
+                quotient_launches += launches
+                perm_launches += bool(builder.interactions)
             witness = ("device" if on_device and device_trace.supported(chip)
                        else "host")
             print(shard.index, chip.name, rows, height, chip.width, pw,
-                  f"{on_device}/{witness}-witness", len(prog.ops), chunks)
+                  f"{on_device}/{witness}-witness", len(prog.ops), chunks,
+                  launches)
     print(f"fib({args.n}) at shard size {args.shard_size}: {len(shards)} "
           f"shards, {main_cells} padded main cells, {perm_cells} perm "
-          f"cells, {vm_launches} constraint-VM launches per prove")
+          f"cells; kernel launches per prove on a card: "
+          f"{quotient_launches} constraint_quotient, {perm_launches} "
+          f"logup_perm_phi; the plain constraint VM's eager launches: "
+          f"{vm_launches}")
     return 0
 
 

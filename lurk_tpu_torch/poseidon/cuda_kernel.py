@@ -2,9 +2,8 @@
 
 The port of lurk_tpu/poseidon/tpu_kernel.py::permute_mont_tpu. The library
 is compiled with nvcc for sm_90a into a shared library with a plain C
-interface on first use, into build/ at the repository root (listed in
-.gitignore), and loaded with ctypes. The kernel launches on PyTorch's
-current stream.
+interface on first use (utils/cuda_build.py) and loaded with ctypes. The
+kernel launches on PyTorch's current stream.
 
 `permute_mont_cuda(state)` sends a CUDA tensor to the kernel and a CPU
 tensor to the plain PyTorch version (poseidon/perm.py::permute_mont); it
@@ -19,10 +18,6 @@ thread's current CUDA device as they found it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from functools import lru_cache
 from pathlib import Path
@@ -31,63 +26,21 @@ import numpy as np
 import torch
 
 from ..field import babybear as bb
+from ..utils import cuda_build
 from . import perm
 from .constants import get_config
 
 WIDTHS = (16, 24, 32, 40)
-_ROOT = Path(__file__).resolve().parents[2]
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "poseidon2.cu"
-BUILD_DIR = _ROOT / "build" / "lurk_tpu_torch"
-# one build at a time in this process: the REPL's warmup thread and a
-# first prove may both ask for the library
-_BUILD_LOCK = threading.Lock()
 # the constant uploads done so far, {(width, device index)}, and the lock
 # that makes a concurrent first use upload once and the launch count exact
 _LOADED = set()
 _STATE_LOCK = threading.Lock()
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
-
-
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
-        path = Path(cand) / "bin" / "nvcc"
-        if cand and path.exists():
-            return str(path)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the Poseidon2 CUDA kernel cannot "
-                           "be built (set CUDA_HOME)")
-    return found
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile csrc/poseidon2.cu into build/ (keyed by the source's hash,
-    so an edited source is never served by a stale library). Returns the
-    library path; raises on a failed build."""
-    with _BUILD_LOCK:
-        return _build(verbose)
-
-
-def _build(verbose: bool) -> Path:
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libposeidon2_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), str(_SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if verbose and (res.stdout or res.stderr):
-        print(res.stdout + res.stderr, flush=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
-    return out
+    """Compile csrc/poseidon2.cu into build/ (utils/cuda_build.py). Returns
+    the library path; raises on a failed build."""
+    return cuda_build.build("poseidon2", "poseidon2.cu", verbose=verbose)
 
 
 @lru_cache(maxsize=1)

@@ -9,7 +9,8 @@ proves once to warm up, then proves again under torch.profiler (CPU and
 CUDA activities). Prints the card's name and power limit, the warm prove's
 wall seconds, the device busy time (the union of the intervals of every
 device event: kernels and copies) and its share of the wall, the number of
-device events, the Poseidon2 kernel's total time, and the device kernels
+device events, the total time and launches of each hand-written kernel
+(Poseidon2, constraint_quotient, logup_perm_phi), and the device kernels
 by total time. With --trace, writes the chrome trace there. Needs a card;
 it exits non-zero without one.
 """
@@ -54,6 +55,7 @@ def main(argv=None) -> int:
     from .poseidon.cuda_kernel import permute_mont_cuda
     from .stark.challenger import Challenger
     from .stark.fri import FriConfig
+    from .stark.quotient_kernel import constraint_quotient, logup_perm_phi
 
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -78,21 +80,29 @@ def main(argv=None) -> int:
     prove()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    permute_mont_cuda.launches = 0
+    # (wrapper, the kernel's name in the trace)
+    kernels = {"Poseidon2": (permute_mont_cuda, "perm_kernel"),
+               "constraint_quotient": (constraint_quotient,
+                                       "quotient_kernel"),
+               "logup_perm_phi": (logup_perm_phi, "perm_phi_kernel")}
+    for fn, _ in kernels.values():
+        fn.launches = 0
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         prove()
         wall = time.perf_counter() - t0
-    launches = permute_mont_cuda.launches
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = _busy_us((e.time_range.start, e.time_range.end) for e in dev)
-    perm_us = sum(e.time_range.elapsed_us() for e in dev
-                  if "perm_kernel" in e.name)
+    per_kernel = []
+    for name, (fn, key) in kernels.items():
+        us = sum(e.time_range.elapsed_us() for e in dev if key in e.name)
+        per_kernel.append(f"{name} {us / 1e3:.3f} ms over {fn.launches} "
+                          "launches")
+    per_kernel = ", ".join(per_kernel)
     print(f"fib({args.n}) warm prove under the profiler: {wall:.3f}s wall, "
           f"device busy {busy / 1e6:.3f}s ({100 * busy / 1e6 / wall:.1f} % "
-          f"of the wall), {len(dev)} device events, Poseidon2 kernel "
-          f"{perm_us / 1e3:.3f} ms over {launches} launches {on}")
+          f"of the wall), {len(dev)} device events; {per_kernel} {on}")
     print(prof.key_averages().table(sort_by="device_time_total",
                                     row_limit=25, max_name_column_width=60))
     if args.trace:

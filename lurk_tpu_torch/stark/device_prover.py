@@ -15,8 +15,11 @@ Arithmetic: field values are canonical int32 tensors; the stages widen to
 int64, reduce after every product, and narrow again. lurk_tpu kept one
 operand of each product in Montgomery form because the TPU has no 64-bit
 multiply; the values are the same, so this port multiplies canonical
-values directly. Every Poseidon2 permutation (Merkle leaves and nodes)
-goes through the CUDA kernel (poseidon/cuda_kernel.py) on a CUDA device.
+values directly. On a CUDA device every Poseidon2 permutation (Merkle
+leaves and nodes) goes through the CUDA kernel (poseidon/cuda_kernel.py),
+and the plan-driven perm trace's batch contributions and the
+constraint-VM quotient's fold through the kernels of
+stark/quotient_kernel.py.
 
 Ported: mod sums, the device Merkle trees, the committed rounds (LDE +
 tree), the plan-driven LogUp permutation trace, the constraint-VM
@@ -549,59 +552,39 @@ def _x_extras(h: int, device) -> torch.Tensor:
     return cols
 
 
-def _plan_arrays(plan, pv, r, gamma, device, pad_d_one: bool, n_keep: int):
-    """Canonical plan arrays for the first `n_keep` (padded) interactions,
-    on device: ti, mi (T, n) int64 column indices; tw (T, n, 4), dconst
-    (n, 4), mw (M, n), mconst (n,) int64 weights."""
+def _plan_arrays(plan, pv, r, gamma, pad_d_one: bool, n_keep: int):
+    """Canonical int64 host plan arrays for the first `n_keep` (padded)
+    interactions: ti, mi (T, n) column indices; tw (T, n, 4), dconst (n,
+    4), mw (M, n), mconst (n,) weights. Trailing term rows whose weights
+    are all zero (the plan's padding to a bucket) are dropped: they add
+    nothing."""
     from ..logup.affine import assemble
     arrs = assemble(plan, pv, r, gamma, pad_d_one=pad_d_one, raw=True)
     out = {}
     for k, v in arrs.items():
-        v = np.ascontiguousarray(v[..., :n_keep, :] if k in ("tw", "dconst")
-                                 else v[..., :n_keep]).astype(np.int64)
-        out[k] = torch.from_numpy(v).to(device)
+        v = v[..., :n_keep, :] if k in ("tw", "dconst") else v[..., :n_keep]
+        out[k] = np.ascontiguousarray(v).astype(np.int64)
+    for idx, w in (("ti", "tw"), ("mi", "mw")):
+        used = out[w].reshape(out[w].shape[0], -1).any(axis=1)
+        keep = int(np.nonzero(used)[0][-1]) + 1 if used.any() else 0
+        out[idx], out[w] = out[idx][:keep], out[w][:keep]
     return out
-
-
-def _fingerprints(X, a):
-    """(rows, n, 4) ext fingerprints d = dconst + sum_t tw_t * X[:, ti_t]
-    and (rows, n) base multiplicities m = mconst + sum_t mw_t * X[:, mi_t]
-    from canonical int64 plan arrays `a` and int64 columns X."""
-    D = a["dconst"].expand(X.shape[0], -1, -1)
-    for t in range(a["ti"].shape[0]):
-        col = X[:, a["ti"][t]]                        # (rows, n)
-        D = (D + a["tw"][t] * col[:, :, None] % P) % P
-    M = a["mconst"].expand(X.shape[0], -1)
-    for t in range(a["mi"].shape[0]):
-        M = (M + a["mw"][t] * X[:, a["mi"][t]] % P) % P
-    return D, M
 
 
 def device_perm_trace_plan(plan, main_dev, prep_dev, pv, r, gamma):
     """Plan-driven LogUp permutation trace: returns (perm trace (h,
     4(B+1)) int32, cumulative sum (4,)), device-resident. Mirrors
-    logup.trace.build_permutation_trace bit-exactly."""
+    logup.trace.build_permutation_trace bit-exactly. The batch
+    contributions come from stark/quotient_kernel.logup_perm_phi (the CUDA
+    kernel on a card), the running sum from a torch scan."""
+    from .quotient_kernel import logup_perm_phi
     h = int(main_dev.shape[0])
-    device = main_dev.device
     nb = plan.n_batches
-    a = _plan_arrays(plan, pv, r, gamma, device, pad_d_one=False,
-                     n_keep=2 * nb)
-    parts = [main_dev]
-    if prep_dev is not None:
-        parts.append(prep_dev)
-    parts.append(_x_extras(h, device))
-    X = torch.cat(parts, dim=1)
-    rows = min(h, _gperm_rows(plan.n_inter_padded))
-    phis = []
-    for c0 in range(0, h, rows):
-        D, M = _fingerprints(X[c0:c0 + rows].to(I64), a)
-        # padded interactions have D = 0 and M = 0: einv(0) = 0 keeps
-        # their contribution zero
-        contrib = ext_t.einv(D).to(I64) * M[:, :, None] % P
-        phis.append((contrib[:, 0::2] + contrib[:, 1::2]) % P)  # (rows, B, 4)
-    phi = torch.cat(phis, dim=0)
-    s = mod_cumsum(phi.sum(dim=1), dim=0)                       # (h, 4)
-    perm = torch.cat([phi.reshape(h, 4 * nb).to(I32), s], dim=1)
+    a = _plan_arrays(plan, pv, r, gamma, pad_d_one=False, n_keep=2 * nb)
+    perm = torch.empty((h, 4 * (nb + 1)), dtype=I32, device=main_dev.device)
+    logup_perm_phi(perm, main_dev, prep_dev, a, plan.n_inter_padded)
+    s = mod_cumsum(perm[:, :4 * nb].view(h, nb, 4).sum(dim=1), dim=0)
+    perm[:, 4 * nb:] = s
     return perm, s[-1]
 
 
@@ -794,71 +777,6 @@ def _vm_rows(width: int) -> int:
     return rows
 
 
-def _vm_eval(prog, consts, local, nxt, weights):
-    """Run the VM program over (rows, Wx) int64 local/next columns and
-    alpha-fold the constraint registers with canonical ext weights (n_cons,
-    4). Returns the (rows, 4) int64 fold."""
-    from .constraint_vm import OP_ADD, OP_SUB
-    R = prog.n_regs
-    Wx = prog.x_width
-    regs: list = [None] * R
-
-    def operand(i):
-        if i < R:
-            return regs[i]
-        if i < R + Wx:
-            return local[:, i - R]
-        if i < R + 2 * Wx:
-            return nxt[:, i - R - Wx]
-        return consts[i - R - 2 * Wx]
-
-    for o, d, ia, ib in prog.ops.tolist():
-        va, vb = operand(ia), operand(ib)
-        if o == OP_ADD:
-            v = (va + vb) % P
-        elif o == OP_SUB:
-            v = (va - vb) % P
-        else:
-            v = va * vb % P
-        if not isinstance(v, torch.Tensor):
-            v = torch.full((local.shape[0],), v, dtype=I64,
-                           device=local.device)
-        regs[d] = v
-    folded = torch.zeros((local.shape[0], 4), dtype=I64, device=local.device)
-    for i in range(prog.n_cons):
-        folded = (folded + weights[i] * regs[i][:, None] % P) % P
-    return folded
-
-
-def _pq_eval(a, nb: int, local, nxt, phi_l, phi_n, s_l, s_n, sel_l, cum,
-             wb, wsel):
-    """LogUp perm-quotient over one row chunk: each batch's lhs - rhs and
-    the three running-sum constraints, alpha-folded with canonical ext
-    weights wb (nb, 4) and wsel (3, 4). Padded interaction partners carry
-    d = 1 and m = 0, so singleton batches fold through."""
-    D, M = _fingerprints(local, a)
-    d0, d1 = D[:, 0::2], D[:, 1::2]
-    m0, m1 = M[:, 0::2], M[:, 1::2]
-    lhs = ext_t.emul(ext_t.emul(phi_l, d0), d1).to(I64)
-    rhs = (_ext_times_base(d1, m0).to(I64)
-           + _ext_times_base(d0, m1).to(I64)) % P
-    outs = (lhs - rhs) % P                                   # (rows, nb, 4)
-    folded = torch.zeros((local.shape[0], 4), dtype=I64, device=local.device)
-    for b in range(nb):
-        folded = (folded + ext_mul_scalar(outs[:, b], wb[b])) % P
-    total_phi = mod_tree_sum(phi_l, dim=1)
-    total_phi_next = mod_tree_sum(phi_n, dim=1)
-    first, last, trans = sel_l
-    sel_vals = [
-        first[:, None] * ((s_l - total_phi) % P) % P,
-        trans[:, None] * ((s_n - s_l - total_phi_next) % P) % P,
-        last[:, None] * ((s_l - cum) % P) % P,
-    ]
-    for k, v in enumerate(sel_vals):
-        folded = (folded + ext_mul_scalar(v, wsel[k])) % P
-    return folded
-
-
 def _quotient_epilogue(folded, tabs, log_h: int):
     """Z_H division, coset interpolation, q0/q1 split + forward NTTs:
     (big, 4) folded constraint values -> (h, 8) quotient chunk."""
@@ -872,57 +790,41 @@ def _quotient_epilogue(folded, tabs, log_h: int):
                      dim=1).to(I32)
 
 
-def device_quotient_chunk_vm(builder, main_lde, prep_lde, perm_lde,
-                             pv, r, gamma, alpha, cum, log_h: int):
-    """(h, 8) quotient chunk via the constraint VM + the perm plan."""
+def quotient_inputs(builder, main_lde, prep_lde, perm_lde, pv, r, gamma,
+                    alpha, cum, log_h: int):
+    """stark/quotient_kernel.QuotientInputs of one chip: its VM program,
+    constants and plan arrays (pad_d_one), the alpha-power fold weights in
+    evaluation order (constraint i scaled by alpha^(n_total-1-i)), the LDE
+    slices and the coset selectors."""
     from ..logup.trace import interaction_batches
+    from .quotient_kernel import QuotientInputs
     prog = vm_program_for(builder)
-    plan = plan_for(builder)
-    device = main_lde.device
     n_base = len(builder.constraints)
     nb = len(interaction_batches(builder))
     apows = host_pcs.ext_powers(alpha, n_base + nb + 3)
-    weights = torch.from_numpy(
-        np.ascontiguousarray(apows[::-1]).astype(np.int64)).to(device)
-    wbase, wb, wsel = weights[:n_base], weights[n_base:n_base + nb], \
-        weights[n_base + nb:]
-    consts = [int(c) for c in bb.np_from_mont(prog.consts_mont(pv))]
-    tabs = _coset_tables(log_h, device)
-    big = 1 << (log_h + LOG_BLOWUP)
-    stride = 1 << LOG_BLOWUP
-    sels = tabs["sels"]
-    # X = [main | prep | first | last | transition | ones]: the VM's local
-    # column space; the plan's indices address its first x_width columns
-    parts = [main_lde]
-    if prep_lde is not None:
-        parts.append(prep_lde)
-    parts += [torch.stack([sels["first"], sels["last"], sels["transition"],
-                           torch.ones_like(sels["first"])], dim=1)]
-    x_width = sum(int(p.shape[1]) for p in parts)
-    a = _plan_arrays(plan, pv, r, gamma, device, pad_d_one=True,
-                     n_keep=2 * nb)
-    cum_dev = ext_scalar_dev(cum, device)
-    rows = min(big, _vm_rows(prog.n_regs + 2 * x_width))
-    outs = []
-    for c0 in range(0, big, rows):
-        # rows c0 .. c0 + rows + stride (mod big) in int64: the chunk's
-        # local rows, and `stride` rows on its next rows
-        win = torch.cat([_window(p, c0, rows, stride, big).to(I64)
-                         for p in parts], dim=1)
-        pwin = _window(perm_lde, c0, rows, stride, big).to(I64)
-        phi = pwin[:, :4 * nb].reshape(-1, nb, 4)
-        s = pwin[:, 4 * nb:4 * nb + 4]
-        X, Xn = win[:rows], win[stride:stride + rows]
-        sl = slice(c0, c0 + rows)
-        sel_l = (sels["first"][sl], sels["last"][sl], sels["transition"][sl])
-        folded = _vm_eval(prog, consts, X, Xn, wbase)
-        folded = (folded + _pq_eval(a, nb, X, Xn, phi[:rows],
-                                    phi[stride:stride + rows], s[:rows],
-                                    s[stride:stride + rows], sel_l, cum_dev,
-                                    wb, wsel)) % P
-        outs.append(folded)
-    folded = torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]
-    return _quotient_epilogue(folded, tabs, log_h)
+    weights = np.ascontiguousarray(apows[::-1]).astype(np.int64)
+    return QuotientInputs(
+        prog=prog, consts=bb.np_from_mont(prog.consts_mont(pv)),
+        main=main_lde, prep=prep_lde, perm=perm_lde,
+        sels=_coset_tables(log_h, main_lde.device)["sels"],
+        plan=_plan_arrays(plan_for(builder), pv, r, gamma, pad_d_one=True,
+                          n_keep=2 * nb),
+        nb=nb, wbase=weights[:n_base], wb=weights[n_base:n_base + nb],
+        wsel=weights[n_base + nb:],
+        cum=np.asarray([int(v) % P for v in cum], np.int64),
+        stride=1 << LOG_BLOWUP)
+
+
+def device_quotient_chunk_vm(builder, main_lde, prep_lde, perm_lde,
+                             pv, r, gamma, alpha, cum, log_h: int):
+    """(h, 8) quotient chunk via the constraint VM + the perm plan: the
+    fold runs in stark/quotient_kernel.constraint_quotient (the CUDA
+    kernel on a card), the epilogue in torch."""
+    from .quotient_kernel import constraint_quotient
+    q = quotient_inputs(builder, main_lde, prep_lde, perm_lde, pv, r, gamma,
+                        alpha, cum, log_h)
+    return _quotient_epilogue(constraint_quotient(q),
+                              _coset_tables(log_h, main_lde.device), log_h)
 
 
 # ---------------------------------------------------------------------------
@@ -1500,9 +1402,11 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
     alone (`modeled_highwater_bytes`) and of the whole prove in its keep
     mode (`modeled_prove_bytes`), the chips, padded cells and host-clock
     seconds of the witnesses made on the device (dispatch: the device runs
-    on asynchronously) or on the host and uploaded, and the Poseidon2
-    kernel launches of the prove (printed to stderr under
-    LURK_TPU_PROVE_TIMING=1, so that a CLI run reports them). On a CUDA
+    on asynchronously) or on the host and uploaded, and the prove's
+    launches of the Poseidon2, constraint_quotient and logup_perm_phi
+    kernels (`kernel_launches`, `quotient_launches`, `perm_launches`,
+    printed to stderr under LURK_TPU_PROVE_TIMING=1, so that a CLI run
+    reports them). On a CUDA
     device also the measured peaks: `peak_allocated_bytes`,
     `peak_reserved_bytes` and `phase_peaks`, one dict per phase (its
     allocated and reserved peaks, the allocated memory at its end and the
@@ -1510,17 +1414,20 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
     from ..lair.chips import chip_included
     from ..poseidon.cuda_kernel import permute_mont_cuda
     from .machine import MachineProof
+    from .quotient_kernel import constraint_quotient, logup_perm_phi
     from . import hbm
 
     device = torch.device(device) if device is not None else default_device()
     mem = _PhasePeaks(device)
-    launches0 = permute_mont_cuda.launches
+    launches0 = (permute_mont_cuda.launches, constraint_quotient.launches,
+                 logup_perm_phi.launches)
     shards, hbm_budget = hbm.plan_shards(machine, queries, shard_config,
                                          device)
     pv = queries.expect_public_values()
     stats = machine.last_device_prove = dict(
         shards=len(shards), budget_bytes=hbm_budget,
-        modeled_highwater_bytes=max(hbm.shard_highwater_bytes(machine, s)
+        modeled_highwater_bytes=max(hbm.shard_highwater_bytes(machine, s,
+                                                              device)
                                     for s in shards),
         device_witness_chips=0, device_witness_cells=0, device_witness_s=0.0,
         host_witness_chips=0, host_witness_cells=0, host_witness_s=0.0)
@@ -1549,10 +1456,10 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
     # only the roots and recommits each shard from its witness in pass 2
     # (device-made traces are generated again), so device memory is
     # bounded by one shard.
-    keep_mode = hbm.keep_mode(machine, shards, hbm_budget)
+    keep_mode = hbm.keep_mode(machine, shards, hbm_budget, device)
     keep_rounds = keep_mode == "full"
     stats["keep_mode"] = keep_mode
-    modeled = hbm.prove_phases(machine, shards, keep_mode)
+    modeled = hbm.prove_phases(machine, shards, keep_mode, device)
     stats["modeled_prove_bytes"] = max(b for _, b in modeled)
     if _TIMING:
         print(f"[prove-timing] plan: {len(shards)} shard(s), keep mode "
@@ -1655,7 +1562,11 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
         if keep_rounds:
             kept_rounds[si] = None        # fully consumed: free its trees
         del main_round
-    stats["kernel_launches"] = permute_mont_cuda.launches - launches0
+    stats["kernel_launches"], stats["quotient_launches"], \
+        stats["perm_launches"] = (
+            permute_mont_cuda.launches - launches0[0],
+            constraint_quotient.launches - launches0[1],
+            logup_perm_phi.launches - launches0[2])
     if mem.device is not None:
         want = dict(modeled)
         stats["phase_peaks"] = [
@@ -1665,7 +1576,9 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
         stats["peak_reserved_bytes"] = max(p[2] for p in mem.peaks)
     if _TIMING:
         print(f"[prove-timing] device_prove: {len(shards)} shard(s), "
-              f"{stats['kernel_launches']} Poseidon2 kernel launches",
+              f"{stats['kernel_launches']} Poseidon2 kernel launches, "
+              f"{stats['quotient_launches']} constraint_quotient launches, "
+              f"{stats['perm_launches']} logup_perm_phi launches",
               file=_sys.stderr, flush=True)
     return MachineProof(shard_proofs, list(pv))
 

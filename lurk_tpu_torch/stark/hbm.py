@@ -22,16 +22,23 @@ by the prover's own chunk constants:
                   LDE (8 B/cell) and tree digests (128 B/row of a group);
                   the int64 INTT + coset NTT of one LDE_CHUNK_CELLS column
                   chunk; the leaf sponge of one row block
-  perm trace      the int32 columns of the chip, the int64 fingerprints of
-                  one _gperm_rows chunk, the whole-chip int64 batch
-                  contributions before they narrow
-  quotient        one _vm_rows window of the chip's LDE and perm LDE in
-                  int64, the constraint VM's registers over it, the
-                  epilogue NTTs
+  perm trace      on the CPU: the int32 columns of the chip, the int64
+                  fingerprints of one _gperm_rows chunk, the whole-chip
+                  int64 batch contributions before they narrow; on CUDA
+                  (the logup_perm_phi kernel writes into the perm matrix):
+                  the int64 running-sum scan
+  quotient        on the CPU: one _vm_rows window of the chip's LDE and
+                  perm LDE in int64, the constraint VM's registers over
+                  it; on CUDA: the constraint_quotient kernel's register
+                  file (stark/quotient_kernel.launch_rows) and its int32
+                  fold; then the epilogue NTTs
   open            the int64 products of one _open_rows block of a group's
                   coefficients or LDE, the reduced codewords, FRI layers
 
-A keep mode's prove high-water is the largest phase's, with the caching
+The stage transients follow the prover's device: a CUDA device's are the
+kernels' buffers, the CPU's the plain versions' (so that the CPU's plans
+stay lurk_tpu's). A keep mode's prove high-water is the largest phase's,
+with the caching
 allocator's slack (reserved over allocated memory). The byte counts come
 from the stages' code; the margin, the slack, the reserve and the headroom
 were fitted on the card named beside them, where the model bounds the
@@ -155,24 +162,32 @@ def _commit_transient(groups: Dict[int, int], from_coeffs=False) -> int:
     return worst
 
 
-def _perm_transient(c: ChipShape) -> int:
-    """device_perm_trace_plan: the int32 column concat, one chunk's int64
-    fingerprints, inverses and contributions, the whole chip's int64
-    contributions before and after their concat."""
+def _perm_transient(c: ChipShape, cuda: bool) -> int:
+    """device_perm_trace_plan. On CUDA: the running sum's int64 row totals
+    and scan (the kernel writes the batch contributions into the perm
+    matrix, read in place). On the CPU: the int32 column concat, one
+    chunk's int64 fingerprints, inverses and contributions, the whole
+    chip's int64 contributions before and after their concat."""
     from .device_prover import _gperm_rows
     if not c.batches:
         return 16 * c.h
+    if cuda:
+        return 128 * c.h
     rows = min(c.h, _gperm_rows(2 * c.batches))
     return (4 * c.h * c.x_width + 8 * rows * c.x_width
             + 600 * rows * c.batches + 80 * c.h * c.batches)
 
 
-def _quotient_transient(c: ChipShape) -> int:
-    """device_quotient_chunk_vm over one _vm_rows chunk: the window of
-    LDE and perm-LDE rows in int64 (and their concat), the VM's registers
-    and the perm-quotient's temporaries; then the chip's folded values and
-    the epilogue's NTTs."""
+def _quotient_transient(c: ChipShape, cuda: bool) -> int:
+    """device_quotient_chunk_vm, then the chip's folded values and the
+    epilogue's NTTs. On CUDA: the kernel's (n_regs, launch rows) int32
+    register file. On the CPU: one _vm_rows chunk's window of LDE and
+    perm-LDE rows in int64 (and their concat), the VM's registers and the
+    perm-quotient's temporaries."""
     from .device_prover import _vm_rows
+    from .quotient_kernel import launch_rows
+    if cuda:
+        return 4 * c.n_regs * launch_rows(c.n_regs, 2 * c.h) + 512 * c.h
     rows = min(2 * c.h, _vm_rows(c.n_regs + 2 * c.x_width))
     return (rows * (16 * c.x_width + 20 * c.perm_width + 8 * c.n_regs
                     + 352 * c.batches) + 512 * c.h)
@@ -189,7 +204,7 @@ def _open_transient(groups: Dict[int, int]) -> int:
 class _Shard:
     """The byte counts of one shard's rounds and stage transients."""
 
-    def __init__(self, shapes: List[ChipShape]):
+    def __init__(self, shapes: List[ChipShape], cuda: bool):
         dev = [c for c in shapes if c.on_device]
         main = _groups((c.h, c.width) for c in shapes)
         perm = _groups((c.h, c.perm_width) for c in shapes)
@@ -205,9 +220,11 @@ class _Shard:
                              default=0)
         self.t_commit = _commit_transient(main)
         self.t_recommit = _commit_transient(main, from_coeffs=True)
-        self.t_perm = max(map(_perm_transient, dev), default=0)
+        self.t_perm = max((_perm_transient(c, cuda) for c in dev),
+                          default=0)
         self.t_perm_commit = _commit_transient(perm)
-        self.t_quot = max(map(_quotient_transient, dev), default=0)
+        self.t_quot = max((_quotient_transient(c, cuda) for c in dev),
+                          default=0)
         self.t_quot_commit = _commit_transient(quot)
         all_groups = list(main.items()) + list(perm.items()) + \
             list(quot.items())
@@ -245,8 +262,10 @@ class _Shard:
         ]
 
 
-def _shards_model(machine, shards) -> List[_Shard]:
-    return [_Shard(chip_shapes(machine, s)) for s in shards]
+def _shards_model(machine, shards, device) -> List[_Shard]:
+    import torch
+    cuda = torch.device(device).type == "cuda"
+    return [_Shard(chip_shapes(machine, s), cuda) for s in shards]
 
 
 def _tables(model: List[_Shard]) -> int:
@@ -254,10 +273,11 @@ def _tables(model: List[_Shard]) -> int:
     return _TABLE_BYTES_PER_ROW * sum(heights)
 
 
-def prove_phases(machine, shards, keep_mode: str,
+def prove_phases(machine, shards, keep_mode: str, device,
                  model: Optional[List[_Shard]] = None
                  ) -> List[Tuple[str, int]]:
-    """[(phase, modeled bytes)] in device_prove's order: the reserved
+    """[(phase, modeled bytes)] of a prove on `device`, in device_prove's
+    order: the reserved
     memory of each phase, which is its allocated high-water (with a
     margin) and the caching allocator's slack: the freed blocks of the
     prove's largest transient, which it keeps for reuse and later stages,
@@ -266,7 +286,8 @@ def prove_phases(machine, shards, keep_mode: str,
     of chip_smoke.py's proofs of phases 10, 16 and 22-24, against largest
     transients of 3.60 to 4.81 GiB modeled). The labels are device_prove's
     phase_peaks labels."""
-    model = model if model is not None else _shards_model(machine, shards)
+    model = model if model is not None else \
+        _shards_model(machine, shards, device)
     cached = max((m.t_max for m in model), default=0)
     fixed = _tables(model)
     kept = [m.kept(keep_mode) for m in model]
@@ -289,15 +310,18 @@ def prove_phases(machine, shards, keep_mode: str,
     return [(label, int(b * _ALLOC_MARGIN) + cached) for label, b in out]
 
 
-def modeled_prove_bytes(machine, shards, keep_mode: str,
+def modeled_prove_bytes(machine, shards, keep_mode: str, device,
                         model: Optional[List[_Shard]] = None) -> int:
-    """The whole prove's modeled high-water under `keep_mode`."""
-    return max(b for _, b in prove_phases(machine, shards, keep_mode, model))
+    """The whole prove's modeled high-water under `keep_mode` on
+    `device`."""
+    return max(b for _, b in prove_phases(machine, shards, keep_mode, device,
+                                          model))
 
 
-def shard_highwater_bytes(machine, shard) -> int:
-    """One shard proved alone (keep mode `none`): its modeled high-water."""
-    return modeled_prove_bytes(machine, [shard], "none")
+def shard_highwater_bytes(machine, shard, device) -> int:
+    """One shard proved alone (keep mode `none`) on `device`: its modeled
+    high-water."""
+    return modeled_prove_bytes(machine, [shard], "none", device)
 
 
 def _budget(limit: int) -> int:
@@ -310,7 +334,7 @@ def limit_for_budget(budget: int) -> int:
     return int(budget / _HEADROOM) + _RESERVE + 1
 
 
-def plan_shards(machine, queries, shard_config=None, device=None,
+def plan_shards(machine, queries, shard_config, device,
                 limit_bytes: Optional[int] = None):
     """(shards, budget bytes). Honours an explicit shard_config or a
     SHARD_SIZE env var; otherwise halves the shard size from the default
@@ -327,7 +351,7 @@ def plan_shards(machine, queries, shard_config=None, device=None,
     floor = int(os.environ.get("LURK_TPU_MIN_SHARD_SIZE", str(1 << 16)))
     while size > floor:
         mode = "light" if len(shards) == 1 else "none"
-        if modeled_prove_bytes(machine, shards, mode) <= budget:
+        if modeled_prove_bytes(machine, shards, mode, device) <= budget:
             break
         size >>= 1
         smaller = Shard(queries, 0, ShardingConfig(size)).shard()
@@ -337,24 +361,27 @@ def plan_shards(machine, queries, shard_config=None, device=None,
     return shards, budget
 
 
-def keep_rounds_fits(machine, shards, budget_bytes: int) -> bool:
+def keep_rounds_fits(machine, shards, budget_bytes: int, device) -> bool:
     """True when pass 1 can keep every shard's committed round (mats,
     coefficients, LDE, trees) resident for pass 2."""
-    return modeled_prove_bytes(machine, shards, "full") <= budget_bytes
+    return modeled_prove_bytes(machine, shards, "full",
+                               device) <= budget_bytes
 
 
-def keep_light_fits(machine, shards, budget_bytes: int) -> bool:
+def keep_light_fits(machine, shards, budget_bytes: int, device) -> bool:
     """True when pass 1 can keep every shard's mats and coefficients (the
     LDE and trees are rebuilt from the coefficients in pass 2)."""
-    return modeled_prove_bytes(machine, shards, "light") <= budget_bytes
+    return modeled_prove_bytes(machine, shards, "light",
+                               device) <= budget_bytes
 
 
-def keep_mode(machine, shards, budget_bytes: int) -> str:
+def keep_mode(machine, shards, budget_bytes: int, device) -> str:
     """Pass 1's keep mode: `full` where every shard's round fits, else
     `light` where its mats and coefficients fit, else `none`. One shard is
     never `none`: it would be committed twice in full."""
-    if keep_rounds_fits(machine, shards, budget_bytes):
+    if keep_rounds_fits(machine, shards, budget_bytes, device):
         return "full"
-    if keep_light_fits(machine, shards, budget_bytes) or len(shards) == 1:
+    if keep_light_fits(machine, shards, budget_bytes, device) or \
+            len(shards) == 1:
         return "light"
     return "none"

@@ -1,7 +1,10 @@
 """lurk_tpu_torch on a CUDA card: the Poseidon2 kernel against its plain
 PyTorch version, the hasher's device path against the host path, the
 golden proof, and a default-config prove in a process capped to the
-memory the planner's model asks for. Every test skips without a card.
+memory the planner's model asks for; the constraint-quotient and LogUp
+perm-trace kernels (stark/quotient_kernel.py) against their plain
+versions on every plan chip of golden.LURK_PROGRAM, direct and compiled,
+and the Lurk golden proof through them. Every test skips without a card.
 
 This file imports no jax (the card's machine has none), so it runs there
 without tests/conftest.py:
@@ -11,6 +14,8 @@ without tests/conftest.py:
 Inputs come from numpy seeds. Tolerances are exact.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +23,10 @@ import torch
 from lurk_tpu_torch.field import babybear as bb
 from lurk_tpu_torch.poseidon import perm, ref
 from lurk_tpu_torch.poseidon.cuda_kernel import WIDTHS, permute_mont_cuda
+from lurk_tpu_torch.stark import device_prover as dp
 from lurk_tpu_torch.stark import golden, hasher
+from lurk_tpu_torch.stark import quotient_kernel as qk
+from lurk_tpu_torch.stark.fri import FriConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -92,8 +100,8 @@ def test_capped_default_config_prove_stays_inside_the_model(cuda):
     cuda = torch.device("cuda", torch.cuda.current_device())
     machine, q = golden.fib_machine((1 << 20) - 8, FriConfig())
     pk, vk = machine.setup()
-    shards, _ = hbm.plan_shards(machine, q, device=cuda)
-    modeled = hbm.modeled_prove_bytes(machine, shards, "full")
+    shards, _ = hbm.plan_shards(machine, q, None, cuda)
+    modeled = hbm.modeled_prove_bytes(machine, shards, "full", cuda)
     limit = hbm.limit_for_budget(int(modeled / 0.9))
     total = torch.cuda.mem_get_info(cuda)[1]
     torch.cuda.empty_cache()
@@ -107,4 +115,116 @@ def test_capped_default_config_prove_stays_inside_the_model(cuda):
     assert (stats["shards"], stats["keep_mode"]) == (1, "full")
     assert stats["modeled_prove_bytes"] >= 0.8 * stats["budget_bytes"]
     assert stats["peak_reserved_bytes"] <= stats["modeled_prove_bytes"]
+    assert machine.verify(vk, proof, Challenger())
+
+
+@functools.lru_cache(maxsize=None)
+def _lurk_plan_chips(compiled: bool):
+    machine, q, _ = golden.lurk_machine(golden.LURK_PROGRAM,
+                                        FriConfig(1, 8, 2), compiled)
+    chips = [(c.name, machine.builder_for(c)) for c in machine.chips]
+    return [(n, b, dp.plan_for(b)) for n, b in chips
+            if dp.plan_for(b) is not None], len(q.expect_public_values())
+
+
+def _odd_stride_slices(rng, rows, widths, device):
+    """Column slices of one (rows, odd width) int32 matrix on `device`."""
+    total = sum(widths) + 3 + (sum(widths) % 2 == 0)
+    whole = torch.from_numpy(rng.integers(0, bb.P, (rows, total))
+                             .astype(np.int32)).to(device)
+    whole[-1, :] = 0
+    whole[0, :] = bb.P - 1
+    out, off = [], 1
+    for w in widths:
+        out.append(None if w == 0 else whole[:, off:off + w])
+        off += w
+    return out
+
+
+def _ext(rng):
+    return tuple(int(v) for v in rng.integers(0, bb.P, 4))
+
+
+@pytest.mark.parametrize("compiled", [False, True], ids=["direct", "compiled"])
+@pytest.mark.parametrize("log_h", [0, 9])
+def test_quotient_kernel_matches_plain(cuda, compiled, log_h):
+    chips, n_pv = _lurk_plan_chips(compiled)
+    rng = np.random.default_rng(log_h + 2 * compiled)
+    big = 2 << log_h
+    for name, builder, _ in chips:
+        nb = (len(builder.interactions) + 1) // 2
+        main, prep, perm = _odd_stride_slices(
+            rng, big, [builder.main_width, builder.preprocessed_width,
+                       4 * (nb + 1)], cuda)
+        pv = [int(v) for v in rng.integers(0, bb.P, n_pv)]
+        qi = dp.quotient_inputs(builder, main, prep, perm, pv,
+                                *(_ext(rng) for _ in range(4)), log_h)
+        before = qk.constraint_quotient.launches
+        got = qk.constraint_quotient(qi)
+        rows = qk.launch_rows(qi.prog.n_regs, big)
+        assert qk.constraint_quotient.launches == before + -(-big // rows)
+        want = qk.quotient_plain(qi)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and tuple(got.shape) == (big, 4)
+        assert torch.equal(got.long(), want), name
+
+
+@pytest.mark.parametrize("compiled", [False, True], ids=["direct", "compiled"])
+@pytest.mark.parametrize("log_h", [0, 10])
+def test_perm_kernel_matches_plain(cuda, compiled, log_h):
+    chips, n_pv = _lurk_plan_chips(compiled)
+    rng = np.random.default_rng(10 + log_h + 2 * compiled)
+    h = 1 << log_h
+    for name, builder, plan in chips:
+        if not builder.interactions:
+            continue
+        nb = plan.n_batches
+        main, prep = _odd_stride_slices(
+            rng, h, [builder.main_width, builder.preprocessed_width], cuda)
+        pv = [int(v) for v in rng.integers(0, bb.P, n_pv)]
+        r, gamma = _ext(rng), _ext(rng)
+        a = dp._plan_arrays(plan, pv, r, gamma, pad_d_one=False,
+                            n_keep=2 * nb)
+        got = torch.full((h, 4 * (nb + 1)), -1, dtype=torch.int32,
+                         device=cuda)
+        want = got.clone()
+        before = qk.logup_perm_phi.launches
+        qk.logup_perm_phi(got, main, prep, a, plan.n_inter_padded)
+        assert qk.logup_perm_phi.launches == before + 1
+        qk.perm_phi_plain(want, main, prep, a, plan.n_inter_padded)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+
+
+def test_quotient_kernels_reject_layouts_they_do_not_take(cuda):
+    chips, n_pv = _lurk_plan_chips(False)
+    name, builder, plan = next(c for c in chips if c[1].interactions)
+    rng = np.random.default_rng(3)
+    nb = plan.n_batches
+    main, perm = _odd_stride_slices(rng, 64, [builder.main_width,
+                                              4 * (nb + 1)], cuda)
+    args = ([0] * n_pv, (1, 2, 3, 4), (5, 6, 7, 8), (9, 1, 2, 3),
+            (4, 5, 6, 7), 5)
+    for bad in (main.T.contiguous().T, main.to(torch.int64)):
+        with pytest.raises(ValueError):
+            qk.constraint_quotient(dp.quotient_inputs(builder, bad, None,
+                                                      perm, *args))
+    a = dp._plan_arrays(plan, [0] * n_pv, (1, 2, 3, 4), (5, 6, 7, 8),
+                        pad_d_one=False, n_keep=2 * nb)
+    out = torch.empty((32, 4 * (nb + 1)), dtype=torch.int32, device=cuda)
+    for bad_out in (out.T.contiguous().T, out.to(torch.int64)):
+        with pytest.raises(ValueError):
+            qk.logup_perm_phi(bad_out, main[:32], None, a, 4)
+
+
+def test_lurk_golden_through_the_quotient_kernels(cuda, monkeypatch):
+    """golden.LURK_PROGRAM with every chip on the device path: the proof
+    keeps lurk_tpu's sha256, and both kernels ran."""
+    from lurk_tpu_torch.stark.challenger import Challenger
+    monkeypatch.setenv("LURK_TPU_DEVICE_CHIP_MIN_ROWS", "0")
+    q0, p0 = qk.constraint_quotient.launches, qk.logup_perm_phi.launches
+    machine, vk, proof, digest = golden.lurk_proof(cuda)
+    assert digest == golden.GOLDEN_LURK_SHA256
+    assert qk.constraint_quotient.launches > q0
+    assert qk.logup_perm_phi.launches > p0
     assert machine.verify(vk, proof, Challenger())

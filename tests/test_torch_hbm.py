@@ -100,23 +100,24 @@ def _shards(size, n):
 @pytest.mark.parametrize("n_shards", [1, 4])
 def test_keeping_more_never_models_less(size, n_shards):
     shards = _shards(size, n_shards)
-    full, light, none = (hbm.modeled_prove_bytes(_MACHINE, shards, mode)
+    full, light, none = (hbm.modeled_prove_bytes(_MACHINE, shards, mode, "cpu")
                          for mode in ("full", "light", "none"))
     assert full >= light >= none > 0
     if n_shards > 1:
         assert full > light > none
         budget = (full + light) // 2
-        assert not hbm.keep_rounds_fits(_MACHINE, shards, budget)
-        assert hbm.keep_light_fits(_MACHINE, shards, budget)
-        assert hbm.keep_mode(_MACHINE, shards, budget) == "light"
-        assert hbm.keep_mode(_MACHINE, shards, none) == "none"
+        assert not hbm.keep_rounds_fits(_MACHINE, shards, budget, "cpu")
+        assert hbm.keep_light_fits(_MACHINE, shards, budget, "cpu")
+        assert hbm.keep_mode(_MACHINE, shards, budget, "cpu") == "light"
+        assert hbm.keep_mode(_MACHINE, shards, none, "cpu") == "none"
     else:
-        assert hbm.keep_mode(_MACHINE, shards, 1) == "light"
+        assert hbm.keep_mode(_MACHINE, shards, 1, "cpu") == "light"
 
 
 def test_halving_the_shard_size_never_raises_the_highwater():
     sizes = [1 << k for k in range(22, 9, -1)]
-    marks = [hbm.shard_highwater_bytes(_MACHINE, SimpleNamespace(size=s))
+    marks = [hbm.shard_highwater_bytes(_MACHINE, SimpleNamespace(size=s),
+                                       "cpu")
              for s in sizes]
     assert all(a >= b for a, b in zip(marks, marks[1:]))
     assert marks[0] > 4 * marks[-1]
@@ -125,14 +126,14 @@ def test_halving_the_shard_size_never_raises_the_highwater():
 def test_phases_follow_the_prove():
     """One label per stamp device_prove makes, pass 1 before pass 2."""
     phases = [p for p, _ in hbm.prove_phases(_MACHINE, _shards(1 << 12, 2),
-                                             "none")]
+                                             "none", "cpu")]
     per_shard = ["main recommit", "perm trace", "perm commit", "quotient",
                  "quotient commit", "open"]
     assert phases == ["shard0 witness", "shard0 main commit",
                       "shard1 witness", "shard1 main commit"] + \
         [f"shard{j} {p}" for j in range(2) for p in per_shard]
     full = [p for p, _ in hbm.prove_phases(_MACHINE, _shards(1 << 12, 2),
-                                           "full")]
+                                           "full", "cpu")]
     assert "shard0 main recommit" not in full and len(full) == 14
 
 
@@ -146,7 +147,7 @@ def test_cpu_plans_one_full_shard_for_small_programs(machine_queries):
     shards, budget = hbm.plan_shards(machine, q, None, torch.device("cpu"))
     assert len(shards) == 1
     assert budget == hbm._budget(hbm._DEFAULT_HBM)
-    assert hbm.keep_rounds_fits(machine, shards, budget)
+    assert hbm.keep_rounds_fits(machine, shards, budget, "cpu")
     cfg = ShardingConfig(64)
     explicit, _ = hbm.plan_shards(machine, q, cfg, torch.device("cpu"),
                                   limit_bytes=1)
@@ -198,3 +199,28 @@ def test_small_windows_give_the_same_quotient(monkeypatch):
     whole = dp.device_quotient_chunk_vm(*args)
     monkeypatch.setattr(dp, "_vm_rows", lambda width: 16)
     assert torch.equal(dp.device_quotient_chunk_vm(*args), whole)
+
+
+def test_cuda_models_the_quotient_kernels_buffers(monkeypatch):
+    """On CUDA the perm trace and the quotient hold the kernels' buffers
+    (the running-sum scan; the constraint_quotient register file of
+    launch_rows rows), not the plain versions' int64 windows, which the
+    CPU's model keeps so that its plans stay lurk_tpu's."""
+    from lurk_tpu_torch.stark.quotient_kernel import SCRATCH_BYTES, \
+        launch_rows
+    c = hbm.ChipShape(h=1 << 18, width=148, batches=78, x_width=152,
+                      n_regs=624, on_device=True)
+    assert hbm._quotient_transient(c, cuda=True) == \
+        4 * 624 * launch_rows(624, 1 << 19) + 512 * c.h
+    assert 4 * 624 * launch_rows(624, 1 << 19) <= SCRATCH_BYTES
+    assert hbm._quotient_transient(c, cuda=False) > \
+        4 * hbm._quotient_transient(c, cuda=True)
+    assert hbm._perm_transient(c, cuda=True) == 128 * c.h
+    shards = _shards(1 << 18, 4)
+    cpu = dict(hbm.prove_phases(_MACHINE, shards, "full", "cpu"))
+    cuda = dict(hbm.prove_phases(_MACHINE, shards, "full", "cuda"))
+    assert cpu.keys() == cuda.keys()
+    assert cuda["shard0 quotient"] < cpu["shard0 quotient"]
+    # the model is the named device's, whatever this process has
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert dict(hbm.prove_phases(_MACHINE, shards, "full", "cpu")) == cpu
