@@ -33,7 +33,10 @@ Phases (each raises on failure; nothing is caught):
      device=True) -> machine.verify: 4 shards, 326,397,960 padded cells,
      through the kernel and device witness generation; cold and warm
      proofs byte-identical to the checked-in
-     benches/artifacts/fib100k_4shard_proof.bin.gz;
+     benches/artifacts/fib100k_4shard_proof.bin.gz; the warm prove's
+     constraint_quotient and logup_perm_phi launches equal plan_stats.py's
+     count (one quotient launch per device chip, one perm launch per such
+     chip with interactions; phase 16 too);
  11. the REPL: one lurk_tpu_torch REPL at the CLI's default config
      (PRODUCTION_CONFIG) loads the demo corpus (golden.DEMO_FILES, `!(clear)`
      before each); every `!(prove)` runs on the card, every proof file
@@ -100,8 +103,9 @@ Phases (each raises on failure; nothing is caught):
  25. the quotient kernels at full width: constraint_quotient and
      logup_perm_phi (stark/quotient_kernel.py) bit-equal to their plain
      versions on every chip of phase 10's shard 0 that runs on the
-     device, at its full height, each timed with CUDA events beside its
-     plain version and its bound.
+     device, at its full height, each timed with CUDA events (the
+     kernel's launches alone, the wrapper's calls) beside its plain
+     version and its bound, with its tile and the blocks an SM holds.
 
 Every prove of phases 10, 16 and 22-24 starts from an emptied allocator
 cache and holds the memory model: the reserved peak is at most the
@@ -575,6 +579,7 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
     always agree) and verify it. Returns the warm prove's kernel
     launches and (machine, pk, vk, queries, sharding config)."""
     import torch
+    from lurk_tpu_torch import plan_stats
     from lurk_tpu_torch.core import eval_compiled, eval_direct
     from lurk_tpu_torch.core.eval_api import evaluate
     from lurk_tpu_torch.core.stark_machine import new_machine
@@ -645,6 +650,13 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
                                  "witness")
         if len(proof.shard_proofs) != want_shards:
             raise AssertionError(f"{len(proof.shard_proofs)} shards")
+    planned = plan_stats.kernel_launches(machine, q, cfg)
+    if any(runs[1][1][k] != v for k, v in planned.items()):
+        raise AssertionError(f"{label}fib(100000): launches {runs[1][1]}, "
+                             f"plan_stats counts {planned}")
+    print(f"{label}fib(100000): the warm prove's constraint_quotient and "
+          f"logup_perm_phi launches equal plan_stats.py's count {planned} "
+          f"{on}")
     if runs[0][2] != runs[1][2]:
         raise AssertionError(f"{label}fib(100000): cold and warm proofs "
                              "differ")
@@ -1356,9 +1368,13 @@ def quotient_kernels_full_width(dev, on: str, mqs) -> dict:
     versions on the card, bit for bit, on every chip of phase 10's shard 0
     (ShardingConfig(262144)) that the prover runs on the device, at its
     full height (eval_builtin_expr: 524,288 LDE rows), on random LDE and
-    trace columns read in place from a wider matrix; each chip's kernel and
-    plain times (CUDA events) and bound. Returns each kernel's totals over
-    the shard's chips: ms, plain ms, bound ms and what bounds it, the
+    trace columns read in place from a wider matrix. Each chip's times
+    (CUDA events): the kernel's launches on arguments packed once (their
+    output held to the plain version's too), the wrapper's calls (packing
+    and upload included, as a prove calls it)
+    and the plain version's; its bound, its tile and the blocks an SM
+    holds. Returns each kernel's totals over the shard's chips: ms (the
+    kernel's), wrapper ms, plain ms, bound ms and what bounds it, the
     largest absolute error."""
     import torch
     from lurk_tpu_torch.lair.chips import chip_included
@@ -1385,8 +1401,8 @@ def quotient_kernels_full_width(dev, on: str, mqs) -> dict:
             off += w
         return out
 
-    tot = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
-                   max_abs_err=0, chips=0) for k in KERNELS[1:]}
+    tot = {k: dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                   bytes_ms=0.0, max_abs_err=0, chips=0) for k in KERNELS[1:]}
     for chip in machine.chips:
         rows = chip.num_rows(shard) if chip_included(chip, shard) else 0
         if rows < dp._host_chip_min_rows():
@@ -1408,16 +1424,28 @@ def quotient_kernels_full_width(dev, on: str, mqs) -> dict:
             raise AssertionError(f"constraint_quotient != plain on "
                                  f"{chip.name} ({big} LDE rows, max abs err "
                                  f"{err})")
-        del got, want
+        del got
         widths = builder.main_width + builder.preprocessed_width
         n_bytes = 4 * big * (widths + 4 * (nb + 1)) + 24 * big + 16 * big
         b_ms, b_by = _kernel_bound(n_bytes, *_quotient_ops(qi, big), sms,
                                    clock)
-        k_ms = _event_ms(lambda: qk.constraint_quotient(qi), 3)
+        args = qk.quotient_args(qi)
+        smem = qk.quotient_smem_bytes(args["n_consts"], args["tile"],
+                                      args["stride"], args["ld"],
+                                      args["op_chunk"], args["max_folds"],
+                                      args["rec_words"])
+        tiles = (args["tile"], qk.resident_blocks("quotient", args["tile"],
+                                                  smem, dev))
+        k_ms = _event_ms(lambda: qk.launch_quotient(args), 5)
+        _sync()
+        if not torch.equal(args["out"].tensor.long(), want):
+            raise AssertionError(f"constraint_quotient's timed launches != "
+                                 f"plain on {chip.name}")
+        w_ms = _event_ms(lambda: qk.constraint_quotient(qi), 3)
         p_ms = _event_ms(lambda: qk.quotient_plain(qi), 1)
-        runs = [("constraint_quotient", big, k_ms, p_ms, b_ms, b_by, err,
-                 n_bytes)]
-        del main, prep, perm, qi
+        runs = [("constraint_quotient", big, k_ms, w_ms, p_ms, b_ms, b_by,
+                 err, n_bytes, tiles)]
+        del main, prep, perm, qi, args, want
         if builder.interactions and plan is not None:
             main, prep = columns(h, [builder.main_width,
                                      builder.preprocessed_width])
@@ -1438,31 +1466,48 @@ def quotient_kernels_full_width(dev, on: str, mqs) -> dict:
             n_bytes = 4 * h * widths + 16 * h * nb
             b_ms, b_by = _kernel_bound(n_bytes, *_perm_ops(a, nb, h), sms,
                                        clock)
-            k_ms = _event_ms(lambda: qk.logup_perm_phi(
+            got.fill_(-1)
+            args = qk.perm_args(got, main, prep, a)
+            smem = qk.perm_smem_bytes(args["tile"], args["ld"],
+                                      args["rec_words"])
+            tiles = (args["tile"], qk.resident_blocks("perm", args["tile"],
+                                                      smem, dev))
+            k_ms = _event_ms(lambda: qk.launch_perm(args), 5)
+            _sync()
+            if not torch.equal(got[:, :4 * nb], want[:, :4 * nb]):
+                raise AssertionError(f"logup_perm_phi's timed launches != "
+                                     f"plain on {chip.name}")
+            w_ms = _event_ms(lambda: qk.logup_perm_phi(
                 got, main, prep, a, plan.n_inter_padded), 3)
             p_ms = _event_ms(lambda: qk.perm_phi_plain(
                 want, main, prep, a, plan.n_inter_padded), 1)
-            runs.append(("logup_perm_phi", h, k_ms, p_ms, b_ms, b_by, err,
-                         n_bytes))
-            del main, prep, got, want
-        for name, n_rows, k_ms, p_ms, b_ms, b_by, err, n_bytes in runs:
+            runs.append(("logup_perm_phi", h, k_ms, w_ms, p_ms, b_ms, b_by,
+                         err, n_bytes, tiles))
+            del main, prep, got, want, args
+        for (name, n_rows, k_ms, w_ms, p_ms, b_ms, b_by, err, n_bytes,
+             (tile, blocks)) in runs:
             t = tot[name]
             t["ms"] += k_ms
+            t["wrapper_ms"] += w_ms
             t["plain_ms"] += p_ms
             t["bound_ms"] += b_ms
             t["bytes_ms"] += n_bytes / HBM_BYTES_PER_S * 1e3
             t["max_abs_err"] = max(t["max_abs_err"], err)
             t["chips"] += 1
             print(f"{name} == plain on {chip.name}, {n_rows} rows: kernel "
-                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
-                  f"({b_by}) = {b_ms / k_ms:.3f} of the kernel's time {on}")
+                  f"{k_ms:.4f} ms (wrapper {w_ms:.4f} ms), plain "
+                  f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) = "
+                  f"{b_ms / k_ms:.3f} of the kernel's time; {tile} rows a "
+                  f"block, {blocks} blocks an SM {on}")
     for name, t in tot.items():
         t["bound_by"] = "bytes" if t.pop("bytes_ms") >= t["bound_ms"] \
             else "operations"
         print(f"{name} over shard 0's {t['chips']} device chips "
               f"({sms} SMs at {clock / 1e6:.0f} MHz): kernel {t['ms']:.4f} "
-              f"ms, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
-              f"ms, max abs err {t['max_abs_err']} {on}")
+              f"ms (wrapper {t['wrapper_ms']:.4f} ms), plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms = "
+              f"{t['bound_ms'] / t['ms']:.3f} of the kernel's time, max abs "
+              f"err {t['max_abs_err']} {on}")
         del t["chips"]
     torch.cuda.empty_cache()
     return tot

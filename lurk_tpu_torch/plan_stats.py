@@ -11,7 +11,7 @@ chunks the plain (eager torch) VM runs them over and the launches of the
 constraint_quotient kernel. Totals over the chips on the device path:
 padded main cells, perm cells, the launches of the two kernels of
 stark/quotient_kernel.py per prove on a card (constraint_quotient: one
-per chip and launch_rows chunk; logup_perm_phi: one per chip with
+per chip, over all its LDE rows; logup_perm_phi: one per chip with
 interactions), and beside them the eager torch launches the plain
 constraint VM dispatches per prove (two per instruction and chunk: the
 operation and its reduction), which is what a card ran before the
@@ -22,6 +22,26 @@ from __future__ import annotations
 
 import argparse
 import sys
+
+
+def kernel_launches(machine, queries, shard_config) -> dict:
+    """The launches of stark/quotient_kernel.py's two kernels that a
+    prove of `queries` at `shard_config` makes on a card: one
+    constraint_quotient per chip on the device path of every shard, one
+    logup_perm_phi per such chip with interactions."""
+    from .lair.chips import chip_included
+    from .lair.execute import Shard
+    from .stark import device_prover as dp
+    min_rows = dp._host_chip_min_rows()
+    out = {"constraint_quotient": 0, "logup_perm_phi": 0}
+    for shard in Shard(queries, 0, shard_config).shard():
+        for chip in machine.chips:
+            if chip_included(chip, shard) and \
+                    chip.num_rows(shard) >= min_rows:
+                out["constraint_quotient"] += 1
+                out["logup_perm_phi"] += \
+                    bool(machine.builder_for(chip).interactions)
+    return out
 
 
 def main(argv=None) -> int:
@@ -39,7 +59,6 @@ def main(argv=None) -> int:
     from .logup.trace import perm_trace_width
     from .stark import device_prover as dp
     from .stark.fri import FriConfig
-    from .stark.quotient_kernel import launch_rows
 
     toplevel, zstore, _ = build_lurk_toplevel()
     code = ("(letrec ((fib (lambda (n) (if (<= n 1) n "
@@ -47,10 +66,10 @@ def main(argv=None) -> int:
             f"(fib {args.n}))")
     _, queries = evaluate(toplevel, zstore, code)
     machine = new_machine(toplevel, FriConfig())
-    shards = Shard(queries, 0, ShardingConfig(args.shard_size)).shard()
+    cfg = ShardingConfig(args.shard_size)
+    shards = Shard(queries, 0, cfg).shard()
     min_rows = dp._host_chip_min_rows()
-    main_cells = perm_cells = vm_launches = quotient_launches = 0
-    perm_launches = 0
+    main_cells = perm_cells = vm_launches = 0
     print("shard chip rows height width perm_width device_path vm_ops "
           "vm_chunks quotient_launches")
     for shard in shards:
@@ -71,22 +90,20 @@ def main(argv=None) -> int:
             big = 2 * height
             chunks = -(-big // min(big, dp._vm_rows(prog.n_regs
                                                     + 2 * x_width)))
-            launches = -(-big // launch_rows(prog.n_regs, big))
             if on_device:
                 vm_launches += 2 * len(prog.ops) * chunks
-                quotient_launches += launches
-                perm_launches += bool(builder.interactions)
             witness = ("device" if on_device and device_trace.supported(chip)
                        else "host")
             print(shard.index, chip.name, rows, height, chip.width, pw,
                   f"{on_device}/{witness}-witness", len(prog.ops), chunks,
-                  launches)
+                  int(on_device))
+    launches = kernel_launches(machine, queries, cfg)
     print(f"fib({args.n}) at shard size {args.shard_size}: {len(shards)} "
           f"shards, {main_cells} padded main cells, {perm_cells} perm "
           f"cells; kernel launches per prove on a card: "
-          f"{quotient_launches} constraint_quotient, {perm_launches} "
-          f"logup_perm_phi; the plain constraint VM's eager launches: "
-          f"{vm_launches}")
+          f"{launches['constraint_quotient']} constraint_quotient, "
+          f"{launches['logup_perm_phi']} logup_perm_phi; the plain "
+          f"constraint VM's eager launches: {vm_launches}")
     return 0
 
 

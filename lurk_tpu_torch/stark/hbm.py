@@ -29,9 +29,9 @@ by the prover's own chunk constants:
                   the int64 running-sum scan
   quotient        on the CPU: one _vm_rows window of the chip's LDE and
                   perm LDE in int64, the constraint VM's registers over
-                  it; on CUDA: the constraint_quotient kernel's register
-                  file (stark/quotient_kernel.launch_rows) and its int32
-                  fold; then the epilogue NTTs
+                  it; on CUDA: the constraint_quotient kernel's int32
+                  fold (the kernel keeps its registers in shared memory);
+                  then the epilogue NTTs
   open            the int64 products of one _open_rows block of a group's
                   coefficients or LDE, the reduced codewords, FRI layers
 
@@ -180,14 +180,14 @@ def _perm_transient(c: ChipShape, cuda: bool) -> int:
 
 def _quotient_transient(c: ChipShape, cuda: bool) -> int:
     """device_quotient_chunk_vm, then the chip's folded values and the
-    epilogue's NTTs. On CUDA: the kernel's (n_regs, launch rows) int32
-    register file. On the CPU: one _vm_rows chunk's window of LDE and
-    perm-LDE rows in int64 (and their concat), the VM's registers and the
-    perm-quotient's temporaries."""
+    epilogue's NTTs. On CUDA: the kernel's (big, 4) int32 fold (its VM
+    registers and row tiles live in shared memory; its packed program and
+    plan records are kilobytes). On the CPU: one _vm_rows chunk's window
+    of LDE and perm-LDE rows in int64 (and their concat), the VM's
+    registers and the perm-quotient's temporaries."""
     from .device_prover import _vm_rows
-    from .quotient_kernel import launch_rows
     if cuda:
-        return 4 * c.n_regs * launch_rows(c.n_regs, 2 * c.h) + 512 * c.h
+        return 512 * c.h
     rows = min(2 * c.h, _vm_rows(c.n_regs + 2 * c.x_width))
     return (rows * (16 * c.x_width + 20 * c.perm_width + 8 * c.n_regs
                     + 352 * c.batches) + 512 * c.h)

@@ -13,17 +13,27 @@ writes a chip's LogUp batch contributions into its perm matrix. A CUDA
 tensor goes to the kernel and a CPU tensor to the plain PyTorch version
 below (the eager code that ran on every device before: _vm_eval, _pq_eval
 and the _fingerprints loop). Each raises ValueError on a layout its kernel
-does not take and RuntimeError on a failed build or launch; each counts
-its kernel launches in `.launches`, under a lock, since
-parallel/shard_prover.py proves from one thread per device slot. The
-library builds at first use (utils/cuda_build.py), launches on PyTorch's
-current stream and leaves the calling thread's current device as it was.
+does not take (or whose tile does not fit in a block's shared memory) and
+RuntimeError on a failed build or launch; each counts its kernel launches
+in `.launches`, under a lock, since parallel/shard_prover.py proves from
+one thread per device slot. Each launches once per call, over all rows.
+The library builds at first use (utils/cuda_build.py), launches on
+PyTorch's current stream and leaves the calling thread's current device as
+it was.
 
-`quotient_args(q)` and `perm_args(...)` pack what each kernel reads, field
-for field in the order of its C structure: a Ptr for each pointer (the
-LDE slices in place, with their row strides; the small arrays in one
-uploaded int32 buffer), an int for each count. The CPU tests read the
-packing back with a numpy interpreter of the kernels.
+What the kernels read is prepared here. `compile_program` turns a VM
+program into the kernel's op stream (cached per program and row stride):
+scratch registers renumbered to the S the program uses, writes of the
+constraint registers folded on write where a register is written once and
+never read, each op packed into two words. `quotient_args(q)` and
+`perm_args(...)` pack each kernel's structure, field for field in the
+order of its C structure: a Ptr for each pointer (the LDE slices in place,
+with their row strides; the small arrays in one int32 buffer uploaded
+through pinned memory without a host sync), an int for each count, and
+the tile's rows per block. Values the kernels multiply are uploaded in
+the Montgomery form they compute in; the fold weights stay canonical, so
+the kernels' outputs are canonical. The CPU tests read the packing back
+with a numpy interpreter of the kernels.
 """
 
 from __future__ import annotations
@@ -46,23 +56,38 @@ P = bb.P
 I32 = bb.I32
 I64 = bb.I64
 _LOCK = threading.Lock()
-# rows of one constraint_quotient launch: its (n_regs, rows) int32
-# register file stays near this many bytes
-SCRATCH_BYTES = 1 << 28
-_BLOCK = 256
+
+# a block's shared memory on sm_90 (227 KB) and the share of it a tile
+# aims at, so that four blocks stay resident on an SM
+SMEM_BYTES = 232448
+_SMEM_TARGET = SMEM_BYTES // 4
+# rows (and threads) of a block: a power of two, at most MAX_TILE, at
+# least a warp's where the shared memory allows
+MAX_TILE = 128
+_MIN_TILE = 32
+
+# the packed op: word 0 holds operands a and b (16-bit offsets), word 1
+# the destination below bit 24 and the opcode and flags above it
+_OPCODE_SHIFT = 24
+OP_MOV = 3
+_A_CONST, _B_CONST, _FOLD = 4, 8, 16
+
+# VM ops staged in a block's shared memory at a time; batches of the
+# perm-quotient and interactions of the perm trace in one staged record
+# (the latter is the kernel's G, the group of one batched inverse)
+OP_CHUNK = 256
+QUOTIENT_GROUP = 2
+PERM_GROUP = 8
 
 QUOTIENT_FIELDS = (
     "main", "main_ld", "main_w", "prep", "prep_ld", "prep_w", "perm",
     "perm_ld", "nb", "first", "last", "trans", "log_big", "stride", "ops",
-    "n_ops", "n_regs", "consts", "n_consts", "wbase", "n_cons", "wb", "wsel",
-    "ti", "tw", "n_t", "dconst", "mi", "mw", "n_m", "mconst", "cum",
-    "scratch", "scratch_ld", "out")
+    "n_ops", "op_chunk", "fold_off", "max_folds", "wfold", "consts",
+    "n_consts", "recs", "rec_off", "rec_words", "group", "wsel", "cum",
+    "ld", "tile", "out")
 PERM_FIELDS = (
     "main", "main_ld", "main_w", "prep", "prep_ld", "prep_w", "h", "nb",
-    "ti", "tw", "n_t", "dconst", "mi", "mw", "n_m", "mconst", "out",
-    "out_ld")
-# the plan arrays in the packed buffer's order
-_PLAN_KEYS = ("ti", "tw", "dconst", "mi", "mw", "mconst")
+    "recs", "rec_off", "rec_words", "ld", "tile", "out", "out_ld")
 
 
 @dataclass(frozen=True)
@@ -78,8 +103,9 @@ class Ptr:
 
 # the structures' 8-byte integer fields; every other field is a pointer
 _INT_FIELDS = {"main_ld", "main_w", "prep_ld", "prep_w", "perm_ld", "nb",
-               "log_big", "stride", "n_ops", "n_regs", "n_consts", "n_cons",
-               "n_t", "n_m", "scratch_ld", "h", "out_ld"}
+               "log_big", "stride", "n_ops", "op_chunk", "max_folds",
+               "n_consts", "rec_words", "group", "ld", "tile", "h",
+               "out_ld"}
 
 
 def _struct(name: str, fields) -> type:
@@ -105,10 +131,11 @@ def _library():
     for fn in ("lurk_quotient_args_size", "lurk_perm_args_size"):
         getattr(lib, fn).restype = ll
         getattr(lib, fn).argtypes = []
-    lib.lurk_constraint_quotient.restype = ctypes.c_int
-    lib.lurk_constraint_quotient.argtypes = [ctypes.c_int, vp, ll, ll, vp]
-    lib.lurk_logup_perm_phi.restype = ctypes.c_int
-    lib.lurk_logup_perm_phi.argtypes = [ctypes.c_int, vp, vp]
+    for fn in ("lurk_constraint_quotient", "lurk_logup_perm_phi"):
+        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).argtypes = [ctypes.c_int, vp, vp]
+    lib.lurk_kernel_occupancy.restype = ctypes.c_int
+    lib.lurk_kernel_occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ll, ll]
     for fn, st in (("lurk_quotient_args_size", _QuotientArgs),
                    ("lurk_perm_args_size", _PermArgs)):
         if getattr(lib, fn)() != ctypes.sizeof(st):
@@ -119,13 +146,22 @@ def _library():
 
 
 def _pack(device, arrays) -> Dict[str, Ptr]:
-    """Upload canonical arrays as one int32 buffer: name -> Ptr into it."""
-    flats = [np.ascontiguousarray(a, np.int64).reshape(-1) for _, a in arrays]
-    sizes = [len(f) for f in flats]
-    buf = torch.from_numpy(np.concatenate(flats).astype(np.int32)
-                           if flats else np.zeros(0, np.int32)).to(device)
-    offs = np.cumsum([0] + sizes[:-1])
-    return {name: Ptr(buf, int(off)) for (name, _), off in zip(arrays, offs)}
+    """Upload int32-valued arrays as one int32 buffer, each at a 16-byte
+    boundary: name -> Ptr into it. On a card the buffer is filled in
+    pinned memory and copied without blocking the host (the caching host
+    allocator keeps the pinned block until the copy has run)."""
+    offs, n = [], 0
+    for _, a in arrays:
+        offs.append(n)
+        n += -(-int(np.size(a)) // 4) * 4
+    cuda = torch.device(device).type == "cuda"
+    host = torch.empty(n, dtype=I32, pin_memory=cuda)
+    view = host.numpy()
+    for (_, a), off in zip(arrays, offs):
+        flat = np.asarray(a).reshape(-1)
+        view[off:off + len(flat)] = flat
+    buf = host.to(device, non_blocking=True) if cuda else host
+    return {name: Ptr(buf, off) for (name, _), off in zip(arrays, offs)}
 
 
 def _slice(name: str, t: Optional[torch.Tensor], rows: int, device,
@@ -159,6 +195,160 @@ def _count(fn) -> None:
         fn.launches += 1
 
 
+def _odd(n: int) -> int:
+    return n | 1
+
+
+def tile_rows(block_bytes, rows: int) -> int:
+    """Rows of a kernel's block: the largest power of two up to MAX_TILE
+    whose block_bytes(T) is at most a quarter of SMEM_BYTES, stopping at a
+    warp (32); below a warp only as far as SMEM_BYTES forces; never more
+    than `rows` rounded up to a power of two. ValueError where one row does
+    not fit."""
+    if block_bytes(1) > SMEM_BYTES:
+        raise ValueError(f"a tile row of {block_bytes(1)} bytes does not "
+                         f"fit in a block's {SMEM_BYTES} bytes of shared "
+                         f"memory")
+    t = MAX_TILE
+    while t > _MIN_TILE and block_bytes(t) > _SMEM_TARGET:
+        t //= 2
+    while t > 1 and block_bytes(t) > SMEM_BYTES:
+        t //= 2
+    return min(t, 1 << max(rows - 1, 0).bit_length())
+
+
+# ---------------------------------------------------------------------------
+# the affine plan as per-interaction lists of nonzero terms
+# ---------------------------------------------------------------------------
+
+def _mont(a) -> np.ndarray:
+    """Canonical values in Montgomery form (x * 2^32 mod p), int64."""
+    return np.asarray(a, np.int64) * bb.R_MOD_P % P
+
+
+def _weights8(w: np.ndarray) -> np.ndarray:
+    """(n, 4) canonical ext weights as the kernels' (n, 8) Montgomery
+    w0..w3, W w1, W w2, W w3, 0."""
+    w = np.asarray(w, np.int64).reshape(-1, 4)
+    out = np.concatenate([w, w[:, 1:] * ext_t.W % P,
+                          np.zeros((len(w), 1), np.int64)], axis=1)
+    return _mont(out)
+
+
+def _pad4(n):
+    return -(-n // 4) * 4
+
+
+def _on_device(cache: dict, device, arrays) -> Dict[str, Ptr]:
+    """_pack(device, arrays) once per device, kept in `cache`; the first
+    upload is waited for, so that a launch on any stream may read it."""
+    key = str(device)
+    if key not in cache:
+        packed = _pack(device, arrays)
+        if torch.device(device).type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+        cache[key] = packed
+    return cache[key]
+
+
+@dataclass
+class _Layout:
+    """Where each value of a plan's records goes. It depends on the plan's
+    term columns and on which weights are nonzero, not on the claim's
+    values, so it is built once per chip (and kind of record)."""
+    template: np.ndarray             # the words, counts and columns set
+    t_mask: np.ndarray               # (n, T) the nonzero term weights
+    m_mask: np.ndarray               # (n, M)
+    at_mconst: np.ndarray            # (n,) word of each mconst
+    at_d: np.ndarray                 # (n, 4)
+    at_tw: np.ndarray                # (terms, 4)
+    at_mw: np.ndarray                # (mult terms,)
+    at_wb: Optional[np.ndarray]      # (nb, 8) with batch weights
+    const: np.ndarray                # (n,) fingerprints without a term
+    offs: np.ndarray                 # record offsets
+    rec_words: int                   # the longest record
+    device_arrays: dict
+
+
+_LAYOUTS: Dict[tuple, _Layout] = {}
+
+
+def _layout(plan: Dict[str, np.ndarray], per_record: int,
+            batches: bool) -> _Layout:
+    """The records' layout (see _records) of a plan, cached."""
+    ti, mi = np.asarray(plan["ti"]), np.asarray(plan["mi"])
+    t_mask = np.asarray(plan["tw"]).any(axis=2).T
+    m_mask = (np.asarray(plan["mw"]) != 0).T
+    key = (per_record, batches, ti.shape, mi.shape, ti.tobytes(),
+           mi.tobytes(), t_mask.tobytes(), m_mask.tobytes())
+    lay = _LAYOUTS.get(key)
+    if lay is not None:
+        return lay
+    n = t_mask.shape[0]
+    tc, mc = t_mask.sum(axis=1), m_mask.sum(axis=1)
+    size = 8 + 4 * tc + _pad4(tc) + _pad4(2 * mc)
+    if batches:
+        unit = 8 + size[0::2] + size[1::2]              # each batch
+        first = np.cumsum(unit) - unit
+        start = np.stack([first + 8, first + 8 + size[0::2]], 1).reshape(-1)
+    else:
+        unit = size                                     # each interaction
+        start = np.cumsum(unit) - unit
+    template = np.zeros(int(unit.sum()), np.int64)
+    template[start] = tc
+    template[start + 1] = mc
+    k = np.repeat(np.arange(n), tc)                     # each term's
+    j = np.arange(len(k)) - np.repeat(np.cumsum(tc) - tc, tc)  # place
+    at_tw = (start[k] + 8 + 4 * j)[:, None] + np.arange(4)
+    template[start[k] + 8 + 4 * tc[k] + j] = ti.T[t_mask]
+    k = np.repeat(np.arange(n), mc)
+    j = np.arange(len(k)) - np.repeat(np.cumsum(mc) - mc, mc)
+    pairs = start[k] + 8 + 4 * tc[k] + _pad4(tc[k]) + 2 * j
+    template[pairs] = mi.T[m_mask]
+    offs = np.concatenate([(np.cumsum(unit) - unit)[::per_record],
+                           [len(template)]])
+    lay = _Layout(template=template, t_mask=t_mask, m_mask=m_mask,
+                  at_mconst=start + 2, at_d=start[:, None] + 4 + np.arange(4),
+                  at_tw=at_tw, at_mw=pairs + 1,
+                  at_wb=(first[:, None] + np.arange(8)) if batches else None,
+                  const=tc == 0, offs=offs,
+                  rec_words=int(np.diff(offs).max(initial=0)),
+                  device_arrays={})
+    _LAYOUTS[key] = lay
+    return lay
+
+
+def _records(plan: Dict[str, np.ndarray], per_record: int,
+             wb: Optional[np.ndarray] = None, invert_constants: bool = False
+             ) -> tuple:
+    """The plan as the records a kernel stages in shared memory: (layout,
+    words). An interaction is a header [term count, multiplicity-term
+    count, mconst (Montgomery), 0, d0..d3], its nonzero term weights (4
+    words each, Montgomery), their columns (padded to 4 words) and its
+    (column, canonical weight) multiplicity pairs (padded to 4 words); d
+    is dconst * 2^64 mod p, where a sum of Montgomery products starts, or
+    with invert_constants, for a fingerprint without terms, its Montgomery
+    inverse (0 for 0). With wb (the perm-quotient's batch weights), a
+    batch is wb's 8 words (_weights8) and its two interactions. A record
+    holds per_record batches (with wb) or interactions; every offset is a
+    multiple of 4 words."""
+    lay = _layout(plan, per_record, wb is not None)
+    words = lay.template.copy()
+    words[lay.at_mconst] = _mont(plan["mconst"])
+    d = np.asarray(plan["dconst"], np.int64) * bb.R2_MOD_P % P
+    if invert_constants and lay.const.any():
+        cd = torch.from_numpy(np.asarray(plan["dconst"], np.int64)
+                              [lay.const])
+        d[lay.const] = _mont(ext_t.einv(cd).to(I64).numpy())
+    words[lay.at_d] = d
+    words[lay.at_tw] = _mont(np.asarray(plan["tw"]).transpose(1, 0, 2)
+                             [lay.t_mask])
+    words[lay.at_mw] = np.asarray(plan["mw"]).T[lay.m_mask]
+    if wb is not None:
+        words[lay.at_wb] = _weights8(wb)
+    return lay, words
+
+
 # ---------------------------------------------------------------------------
 # kernel A: the constraint quotient
 # ---------------------------------------------------------------------------
@@ -186,19 +376,114 @@ class QuotientInputs:
     stride: int                      # the next row's offset
 
 
-def launch_rows(n_regs: int, big: int) -> int:
-    """Rows of one constraint_quotient launch: a power of two whose
-    register file is at most SCRATCH_BYTES (at least one block of rows),
-    and no more than the LDE."""
-    rows = _BLOCK
-    while rows * 2 <= big and rows * 2 * 4 * n_regs <= SCRATCH_BYTES:
-        rows *= 2
-    return min(rows, big)
+@dataclass(frozen=True)
+class CompiledProgram:
+    """A VM program as constraint_quotient runs it: `ops` (n_ops, 2)
+    int32 (then a zero op where n_ops is odd) in chunks of OP_CHUNK; the
+    constraint folded by each FOLD op in stream order (`fold_cons`), the
+    first fold of each chunk (`fold_off`) and the most folds in one chunk;
+    its S scratch slots and the tile row stride `ld` (odd, at least Wx + S
+    words)."""
+    ops: np.ndarray
+    n_ops: int
+    fold_cons: np.ndarray
+    fold_off: np.ndarray
+    max_folds: int
+    n_scratch: int
+    ld: int
+    folded_on_write: int             # constraint registers folded on write
+    device_arrays: dict
+
+
+def compile_program(prog, stride: int) -> CompiledProgram:
+    """The kernel's op stream of a VM program whose next row is `stride`
+    rows on (cached on the program). Operand offsets count words from the
+    thread's tile row: local column c at c, next column c at stride * ld +
+    c, scratch slot s at Wx + s; a constant is its index into the constant
+    table. A constraint register written once and never read is folded
+    when written (its op carries the FOLD flag and, for a destination, the
+    fold's place among its chunk's staged weights); any other keeps a
+    scratch slot and is folded by a MOV at the end, so every program is
+    right, whatever it does with its registers."""
+    cache = prog.__dict__.setdefault("_quotient_kernel_ops", {})
+    if stride in cache:
+        return cache[stride]
+    R, nc, wx = prog.n_regs, prog.n_cons, prog.x_width
+    ops = np.asarray(prog.ops, np.int64).reshape(-1, 4)
+    code, dst, oa, ob = ops.T
+    operands = np.concatenate([oa, ob])
+    writes = np.bincount(dst[dst < nc], minlength=nc)
+    read = np.zeros(nc, bool)
+    read[operands[operands < nc]] = True
+    fold = (writes == 1) & ~read
+    used = np.zeros(R, bool)
+    used[dst] = True
+    used[operands[operands < R]] = True
+    keep = used & ~np.concatenate([fold, np.zeros(R - nc, bool)])
+    slot_of = np.cumsum(keep) - 1
+    n_scratch = int(keep.sum())
+    ld = _odd(wx + n_scratch)
+
+    def offsets(o):
+        off = np.where(o < R, wx + slot_of[np.minimum(o, R - 1)],
+                       np.where(o < R + wx, o - R,
+                                np.where(o < R + 2 * wx,
+                                         stride * ld + o - R - wx,
+                                         o - R - 2 * wx)))
+        return off, o >= R + 2 * wx
+
+    a_off, a_const = offsets(oa)
+    b_off, b_const = offsets(ob)
+    # a 16-bit offset reaches 2^16 words: past that the tile (and the
+    # constant table) would not fit in shared memory anyway
+    if max(a_off.max(initial=0), b_off.max(initial=0), stride * ld + wx) \
+            >= 1 << 16 or nc >= 1 << _OPCODE_SHIFT:
+        raise ValueError(f"the program's tile ({ld} words a row, the next "
+                         f"row {stride} rows on) does not fit in "
+                         f"{SMEM_BYTES} bytes of shared memory")
+    to_fold = (dst < nc) & fold[np.minimum(dst, nc - 1)]
+    late = np.nonzero(keep[:nc] & (writes > 0))[0]       # folded at the end
+    late_off = wx + slot_of[late]
+    is_fold = np.concatenate([to_fold, np.ones(len(late), bool)])
+    fold_cons = np.concatenate([dst[to_fold], late])
+    chunk = np.arange(len(is_fold)) // OP_CHUNK
+    n_chunks = -(-len(is_fold) // OP_CHUNK)
+    per_chunk = np.bincount(chunk[is_fold], minlength=n_chunks)
+    fold_off = np.concatenate([[0], np.cumsum(per_chunk)])
+    local = np.cumsum(is_fold) - 1 - fold_off[chunk]     # a fold's place
+    dst_field = np.where(is_fold, local, 0)
+    dst_field[:len(dst)][~to_fold] = wx + slot_of[dst[~to_fold]]
+    flags = np.concatenate([
+        code | a_const * _A_CONST | b_const * _B_CONST | to_fold * _FOLD,
+        np.full(len(late), OP_MOV | _FOLD)])
+    a_word = np.concatenate([a_off | b_off << 16, late_off | late_off << 16])
+    words = np.stack([a_word, dst_field | flags << _OPCODE_SHIFT], axis=1)
+    # a zero op after the last where the count is odd: the kernel stages
+    # 16 bytes (two ops) at a time
+    words = np.concatenate([words, np.zeros((len(words) % 2, 2), np.int64)])
+    out = CompiledProgram(ops=words.astype(np.uint32).view(np.int32),
+                          n_ops=len(is_fold), fold_cons=fold_cons,
+                          fold_off=fold_off,
+                          max_folds=int(per_chunk.max(initial=0)),
+                          n_scratch=n_scratch, ld=ld,
+                          folded_on_write=int(fold.sum()), device_arrays={})
+    cache[stride] = out
+    return out
+
+
+def quotient_smem_bytes(n_consts: int, tile: int, stride: int, ld: int,
+                        op_chunk: int, max_folds: int,
+                        rec_words: int) -> int:
+    """Shared memory of one constraint_quotient block: the staged op chunk
+    and its fold weights, the constant table (padded to 4 words), the
+    staged record and tile + stride rows of ld words."""
+    return 4 * (2 * op_chunk + 4 * max_folds + _pad4(n_consts)
+                + rec_words + (tile + stride) * ld)
 
 
 def quotient_args(q: QuotientInputs) -> dict:
-    """The kernel's QuotientArgs for q, with the register file and the
-    (big, 4) output allocated on q.main's device."""
+    """The kernel's QuotientArgs for q, with the (big, 4) output allocated
+    on q.main's device."""
     device = q.main.device
     big = int(q.main.shape[0])
     if big & (big - 1) or big == 0:
@@ -216,11 +501,20 @@ def quotient_args(q: QuotientInputs) -> dict:
                 tuple(s.shape) != (big,) or not s.is_contiguous():
             raise ValueError(f"selector {k} must be a contiguous ({big},) "
                              f"int64 tensor on {device}")
-    small = _pack(device, [("ops", prog.ops), ("consts", q.consts),
-                           ("wbase", q.wbase), ("wb", q.wb),
-                           ("wsel", q.wsel), ("cum", q.cum)]
-                  + [(k, q.plan[k]) for k in _PLAN_KEYS])
-    rows = launch_rows(prog.n_regs, big)
+    n_consts = len(q.consts)
+    cp = compile_program(prog, q.stride)
+    op_chunk = min(OP_CHUNK, cp.n_ops + cp.n_ops % 2)
+    lay, recs = _records(q.plan, QUOTIENT_GROUP, wb=q.wb)
+    tile = tile_rows(lambda t: quotient_smem_bytes(
+        n_consts, t, q.stride, cp.ld, op_chunk, cp.max_folds,
+        lay.rec_words), big)
+    fixed = _on_device(cp.device_arrays, device, [("ops", cp.ops),
+                                                  ("fold_off", cp.fold_off)])
+    rec_off = _on_device(lay.device_arrays, device, [("rec_off", lay.offs)])
+    small = _pack(device, [
+        ("consts", _mont(q.consts)),
+        ("wfold", np.asarray(q.wbase, np.int64)[cp.fold_cons]),
+        ("recs", recs), ("wsel", _weights8(q.wsel)), ("cum", q.cum)])
     return dict(
         main=main, main_ld=main_ld, main_w=main_w,
         prep=prep, prep_ld=prep_ld, prep_w=prep_w,
@@ -228,27 +522,50 @@ def quotient_args(q: QuotientInputs) -> dict:
         first=Ptr(q.sels["first"]), last=Ptr(q.sels["last"]),
         trans=Ptr(q.sels["transition"]),
         log_big=big.bit_length() - 1, stride=q.stride,
-        ops=small["ops"], n_ops=int(prog.ops.shape[0]),
-        n_regs=prog.n_regs, consts=small["consts"],
-        n_consts=int(len(q.consts)), wbase=small["wbase"],
-        n_cons=prog.n_cons, wb=small["wb"], wsel=small["wsel"],
-        ti=small["ti"], tw=small["tw"], n_t=int(q.plan["ti"].shape[0]),
-        dconst=small["dconst"], mi=small["mi"], mw=small["mw"],
-        n_m=int(q.plan["mi"].shape[0]), mconst=small["mconst"],
-        cum=small["cum"],
-        scratch=Ptr(torch.empty((prog.n_regs, rows), dtype=I32,
-                                device=device)),
-        scratch_ld=rows,
+        ops=fixed["ops"], n_ops=cp.n_ops, op_chunk=op_chunk,
+        fold_off=fixed["fold_off"], max_folds=cp.max_folds,
+        wfold=small["wfold"], consts=small["consts"], n_consts=n_consts,
+        recs=small["recs"], rec_off=rec_off["rec_off"],
+        rec_words=lay.rec_words, group=QUOTIENT_GROUP, wsel=small["wsel"],
+        cum=small["cum"], ld=cp.ld, tile=tile,
         out=Ptr(torch.empty((big, 4), dtype=I32, device=device)))
 
 
 def _to_struct(st_type, fields, args: dict):
-    vals = {}
-    for f in fields:
-        v = args[f]
-        vals[f] = v.address() if isinstance(v, Ptr) else \
-            (0 if v is None else int(v))
-    return st_type(**vals)
+    return st_type(*(v.address() if isinstance(v, Ptr) else
+                     0 if v is None else int(v)
+                     for v in (args[f] for f in fields)))
+
+
+def resident_blocks(kernel: str, tile: int, smem: int,
+                    device: torch.device) -> int:
+    """Blocks of `tile` threads and `smem` bytes of constraint_quotient
+    (kernel "quotient") or logup_perm_phi ("perm") that one SM of the card
+    holds at once."""
+    n = _library().lurk_kernel_occupancy(
+        device.index if device.index is not None else
+        torch.cuda.current_device(), 0 if kernel == "quotient" else 1,
+        tile, smem)
+    if n < 0:
+        raise RuntimeError(f"occupancy of the {kernel} kernel failed")
+    return n
+
+
+def _launch(name: str, fn, st, device) -> None:
+    err = fn(device.index, ctypes.byref(st),
+             torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def launch_quotient(args: dict) -> torch.Tensor:
+    """Launch constraint_quotient on packed QuotientArgs (quotient_args)
+    and count it; returns the (big, 4) int32 output."""
+    out = args["out"].tensor
+    _launch("constraint_quotient", _library().lurk_constraint_quotient,
+            _to_struct(_QuotientArgs, QUOTIENT_FIELDS, args), out.device)
+    _count(constraint_quotient)
+    return out
 
 
 def constraint_quotient(q: QuotientInputs) -> torch.Tensor:
@@ -257,21 +574,7 @@ def constraint_quotient(q: QuotientInputs) -> torch.Tensor:
     CUDA device, int64 from the plain version on the CPU."""
     if _check_device(q.main) == "cpu":
         return quotient_plain(q)
-    args = quotient_args(q)
-    st = _to_struct(_QuotientArgs, QUOTIENT_FIELDS, args)
-    lib = _library()
-    device = q.main.device
-    stream = torch.cuda.current_stream(device).cuda_stream
-    big, rows = 1 << args["log_big"], args["scratch_ld"]
-    for row0 in range(0, big, rows):
-        err = lib.lurk_constraint_quotient(device.index, ctypes.byref(st),
-                                           row0, min(rows, big - row0),
-                                           stream)
-        if err != 0:
-            raise RuntimeError(f"constraint_quotient launch failed: "
-                               f"cudaError {err}")
-        _count(constraint_quotient)
-    return args["out"].tensor
+    return launch_quotient(quotient_args(q))
 
 
 constraint_quotient.launches = 0
@@ -281,12 +584,19 @@ constraint_quotient.launches = 0
 # kernel B: the LogUp perm trace's batch contributions
 # ---------------------------------------------------------------------------
 
+def perm_smem_bytes(tile: int, ld: int, rec_words: int) -> int:
+    """Shared memory of one logup_perm_phi block: the staged record and
+    tile rows of ld words."""
+    return 4 * (rec_words + tile * ld)
+
+
 def perm_args(perm: torch.Tensor, main: torch.Tensor,
               prep: Optional[torch.Tensor], plan: Dict[str, np.ndarray]
               ) -> dict:
     """The kernel's PermArgs: phi into `perm`'s first 4 nb columns from
     the (h, w) trace columns and the plan arrays (pad_d_one off, 2 nb
-    interactions)."""
+    interactions). The fingerprints without a row-varying term are
+    inverted here, once (0 for 0)."""
     device = main.device
     h = int(main.shape[0])
     nb = int(perm.shape[1]) // 4 - 1
@@ -299,13 +609,23 @@ def perm_args(perm: torch.Tensor, main: torch.Tensor,
     if plan["dconst"].shape[0] != 2 * nb:
         raise ValueError(f"the plan arrays hold {plan['dconst'].shape[0]} "
                          f"interactions, the perm matrix {nb} batches")
-    small = _pack(device, [(k, plan[k]) for k in _PLAN_KEYS])
+    ld = _odd(m_w + p_w + 3)
+    lay, recs = _records(plan, PERM_GROUP, invert_constants=True)
+    tile = tile_rows(lambda t: perm_smem_bytes(t, ld, lay.rec_words), h)
+    rec_off = _on_device(lay.device_arrays, device, [("rec_off", lay.offs)])
+    small = _pack(device, [("recs", recs)])
     return dict(main=m, main_ld=m_ld, main_w=m_w, prep=p, prep_ld=p_ld,
-                prep_w=p_w, h=h, nb=nb, ti=small["ti"], tw=small["tw"],
-                n_t=int(plan["ti"].shape[0]), dconst=small["dconst"],
-                mi=small["mi"], mw=small["mw"],
-                n_m=int(plan["mi"].shape[0]), mconst=small["mconst"],
-                out=out, out_ld=out_ld)
+                prep_w=p_w, h=h, nb=nb, recs=small["recs"],
+                rec_off=rec_off["rec_off"], rec_words=lay.rec_words, ld=ld,
+                tile=tile, out=out, out_ld=out_ld)
+
+
+def launch_perm(args: dict) -> None:
+    """Launch logup_perm_phi on packed PermArgs (perm_args) and count it."""
+    _launch("logup_perm_phi", _library().lurk_logup_perm_phi,
+            _to_struct(_PermArgs, PERM_FIELDS, args),
+            args["out"].tensor.device)
+    _count(logup_perm_phi)
 
 
 def logup_perm_phi(perm: torch.Tensor, main: torch.Tensor,
@@ -317,15 +637,7 @@ def logup_perm_phi(perm: torch.Tensor, main: torch.Tensor,
     the plain version's row chunks."""
     if _check_device(main) == "cpu":
         return perm_phi_plain(perm, main, prep, plan, n_inter_padded)
-    args = perm_args(perm, main, prep, plan)
-    st = _to_struct(_PermArgs, PERM_FIELDS, args)
-    device = main.device
-    err = _library().lurk_logup_perm_phi(
-        device.index, ctypes.byref(st),
-        torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"logup_perm_phi launch failed: cudaError {err}")
-    _count(logup_perm_phi)
+    launch_perm(perm_args(perm, main, prep, plan))
 
 
 logup_perm_phi.launches = 0

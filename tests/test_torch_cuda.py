@@ -161,8 +161,7 @@ def test_quotient_kernel_matches_plain(cuda, compiled, log_h):
                                 *(_ext(rng) for _ in range(4)), log_h)
         before = qk.constraint_quotient.launches
         got = qk.constraint_quotient(qi)
-        rows = qk.launch_rows(qi.prog.n_regs, big)
-        assert qk.constraint_quotient.launches == before + -(-big // rows)
+        assert qk.constraint_quotient.launches == before + 1
         want = qk.quotient_plain(qi)
         torch.cuda.synchronize()
         assert got.dtype == torch.int32 and tuple(got.shape) == (big, 4)
@@ -196,6 +195,43 @@ def test_perm_kernel_matches_plain(cuda, compiled, log_h):
         assert torch.equal(got, want), name
 
 
+@pytest.mark.parametrize("compiled", [False, True], ids=["direct", "compiled"])
+def test_perm_kernel_zero_and_constant_fingerprints(cuda, compiled):
+    """On every plan chip with at least three interactions: interaction 0
+    with a constant fingerprint, interaction 1 with a constant zero one,
+    and a later one of the same group that is 0 on rows 3 and 5 only
+    (its constant zeroed and those rows' main columns zeroed): the kernel
+    equals the plain version."""
+    chips, n_pv = _lurk_plan_chips(compiled)
+    rng = np.random.default_rng(20 + compiled)
+    h, n = 1 << 9, 0
+    for name, builder, plan in chips:
+        nb = plan.n_batches
+        main, prep = _odd_stride_slices(
+            rng, h, [builder.main_width, builder.preprocessed_width], cuda)
+        pv = [int(v) for v in rng.integers(0, bb.P, n_pv)]
+        a = dp._plan_arrays(plan, pv, _ext(rng), _ext(rng), pad_d_one=False,
+                            n_keep=2 * nb)
+        live = (a["tw"] != 0).any(axis=2)                # (T, 2 nb)
+        main_only = [k for k in range(2, 2 * nb) if live[:, k].any() and
+                     (a["ti"][:, k][live[:, k]] < builder.main_width).all()]
+        if not main_only:
+            continue
+        n += 1
+        a["tw"][:, :2] = 0
+        a["dconst"][1] = 0
+        a["dconst"][main_only[0]] = 0
+        main[[3, 5]] = 0
+        got = torch.full((h, 4 * (nb + 1)), -1, dtype=torch.int32,
+                         device=cuda)
+        want = got.clone()
+        qk.logup_perm_phi(got, main, prep, a, plan.n_inter_padded)
+        qk.perm_phi_plain(want, main, prep, a, plan.n_inter_padded)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+    assert n > 10
+
+
 def test_quotient_kernels_reject_layouts_they_do_not_take(cuda):
     chips, n_pv = _lurk_plan_chips(False)
     name, builder, plan = next(c for c in chips if c[1].interactions)
@@ -215,6 +251,82 @@ def test_quotient_kernels_reject_layouts_they_do_not_take(cuda):
     for bad_out in (out.T.contiguous().T, out.to(torch.int64)):
         with pytest.raises(ValueError):
             qk.logup_perm_phi(bad_out, main[:32], None, a, 4)
+
+
+# Run in a fresh process, so that no launch before it has set the
+# kernel's shared-memory attribute: host threads launch constraint_quotient
+# at once on one card with tiles of 1 KB, 51 KB and 144 KB of shared
+# memory (one-constraint programs 60, 3,200 and 9,000 columns wide on a
+# 2-row LDE), as parallel/shard_prover.py's threads do on a mesh whose
+# slots repeat a device. Every launch must succeed and equal the plain
+# version.
+_THREADS_CHILD = """
+import sys, threading
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+from lurk_tpu_torch.stark import device_prover as dp
+from lurk_tpu_torch.stark import quotient_kernel as qk
+from lurk_tpu_torch.stark.constraint_vm import OP_ADD, VMProgram
+cuda = torch.device("cuda")
+
+def inputs(main_w):
+    wx = main_w + 4
+    prog = VMProgram(main_w, 0, 1, np.array([[OP_ADD, 0, 2, 2 + wx + 1]],
+                                            np.int32), [0], [], 2)
+    empty = lambda *shape: np.zeros(shape, np.int64)
+    plan = dict(ti=empty(0, 2), tw=empty(0, 2, 4),
+                dconst=np.array([[1, 0, 0, 0]] * 2), mi=empty(0, 2),
+                mw=empty(0, 2), mconst=empty(2))
+    main = torch.arange(2 * main_w, dtype=torch.int32,
+                        device=cuda).reshape(2, main_w)
+    return qk.QuotientInputs(
+        prog=prog, consts=np.zeros(4, np.int64), main=main, prep=None,
+        perm=torch.ones((2, 8), dtype=torch.int32, device=cuda),
+        sels=dp._coset_tables(0, cuda)["sels"], plan=plan, nb=1,
+        wbase=np.array([[1, 2, 3, 4]]), wb=np.array([[5, 6, 7, 8]]),
+        wsel=np.ones((3, 4), np.int64), cum=np.zeros(4, np.int64), stride=2)
+
+qs = [inputs(w) for w in (60, 3200, 9000)]
+sizes = [qk.quotient_smem_bytes(a["n_consts"], a["tile"], 2, a["ld"],
+                                a["op_chunk"], a["max_folds"], a["rec_words"])
+         for a in map(qk.quotient_args, qs)]
+assert sizes[0] < 48 * 1024 <= sizes[1] < sizes[2], sizes
+errors, start = [], threading.Barrier(len(qs))
+
+def work(q):
+    try:
+        args = qk.quotient_args(q)
+        start.wait()
+        outs = [qk.constraint_quotient(q) for _ in range(100)]
+        for _ in range(2000):          # mostly inside the library's call
+            qk.launch_quotient(args)
+        torch.cuda.synchronize()
+        want = qk.quotient_plain(q)
+        assert all(torch.equal(o.long(), want)
+                   for o in outs + [args["out"].tensor])
+    except Exception as e:
+        errors.append(repr(e))
+
+threads = [threading.Thread(target=work, args=(q,)) for q in qs]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+assert not errors, errors
+assert qk.constraint_quotient.launches == 3 * 2100
+print("ok")
+"""
+
+
+def test_quotient_kernel_launches_from_threads_at_once(cuda):
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, "-c", _THREADS_CHILD, str(root)],
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0 and run.stdout.split()[-1:] == ["ok"], \
+        run.stdout[-2000:] + run.stderr[-4000:]
 
 
 def test_lurk_golden_through_the_quotient_kernels(cuda, monkeypatch):

@@ -203,16 +203,16 @@ def test_small_windows_give_the_same_quotient(monkeypatch):
 
 def test_cuda_models_the_quotient_kernels_buffers(monkeypatch):
     """On CUDA the perm trace and the quotient hold the kernels' buffers
-    (the running-sum scan; the constraint_quotient register file of
-    launch_rows rows), not the plain versions' int64 windows, which the
-    CPU's model keeps so that its plans stay lurk_tpu's."""
-    from lurk_tpu_torch.stark.quotient_kernel import SCRATCH_BYTES, \
-        launch_rows
+    (the running-sum scan; the constraint_quotient fold and its epilogue,
+    with no register file in device memory, whatever the program's
+    registers), not the plain versions' int64 windows, which the CPU's
+    model keeps so that its plans stay lurk_tpu's."""
     c = hbm.ChipShape(h=1 << 18, width=148, batches=78, x_width=152,
                       n_regs=624, on_device=True)
-    assert hbm._quotient_transient(c, cuda=True) == \
-        4 * 624 * launch_rows(624, 1 << 19) + 512 * c.h
-    assert 4 * 624 * launch_rows(624, 1 << 19) <= SCRATCH_BYTES
+    assert hbm._quotient_transient(c, cuda=True) == 512 * c.h
+    wide = hbm.ChipShape(h=1 << 18, width=148, batches=78, x_width=152,
+                         n_regs=9954, on_device=True)
+    assert hbm._quotient_transient(wide, cuda=True) == 512 * c.h
     assert hbm._quotient_transient(c, cuda=False) > \
         4 * hbm._quotient_transient(c, cuda=True)
     assert hbm._perm_transient(c, cuda=True) == 128 * c.h
