@@ -7,7 +7,8 @@ Phases (each raises on failure; nothing is caught):
   1. device: require CUDA; print the card's name and power limit, and
      whether cpp/liblair.so loads;
   2. build: compile the CUDA kernels (nvcc, sm_90a), one nvcc for each
-     source (csrc/poseidon2.cu, csrc/quotient.cu), both at once;
+     source (csrc/poseidon2.cu, csrc/quotient.cu, csrc/open.cu), all at
+     once;
   3. kernel vs plain: the kernel bit-equal to the plain PyTorch
      permutation at widths 16/24/32/40 (batch 2^16 and 2^16 + 3, chains of
      1 and 2) and to the scalar oracle poseidon/ref.py on a few states;
@@ -34,9 +35,12 @@ Phases (each raises on failure; nothing is caught):
      through the kernel and device witness generation; cold and warm
      proofs byte-identical to the checked-in
      benches/artifacts/fib100k_4shard_proof.bin.gz; the warm prove's
-     constraint_quotient and logup_perm_phi launches equal plan_stats.py's
-     count (one quotient launch per device chip, one perm launch per such
-     chip with interactions; phase 16 too);
+     constraint_quotient, logup_perm_phi, open_eval, open_reduce and
+     fri_fold launches equal plan_stats.py's count (one quotient launch
+     per device chip, one perm launch per such chip with interactions, one
+     open_eval and one open_reduce per height group of every round of
+     every shard, one fri_fold per FRI layer above the host tail; phase 16
+     too);
  11. the REPL: one lurk_tpu_torch REPL at the CLI's default config
      (PRODUCTION_CONFIG) loads the demo corpus (golden.DEMO_FILES, `!(clear)`
      before each); every `!(prove)` runs on the card, every proof file
@@ -106,16 +110,22 @@ Phases (each raises on failure; nothing is caught):
      device, at its full height, each timed with CUDA events (the
      kernel's launches alone, the wrapper's calls) beside its plain
      version and its bound, with its tile and the blocks an SM holds.
+ 26. the open kernels at full width: open_eval, open_reduce and fri_fold
+     (stark/open_kernel.py) bit-equal to their plain versions at the
+     shapes of phase 10's shard 0: every height group of its four rounds
+     (plan_stats.open_groups) and every FRI layer above the host tail,
+     each timed with CUDA events (the kernel's launches alone, the
+     wrapper's calls) beside its plain version and its bound.
 
 Every prove of phases 10, 16 and 22-24 starts from an emptied allocator
 cache and holds the memory model: the reserved peak is at most the
 modeled prove, and the modeled prove at most 1.5 times the reserved peak.
 
-Every proof path counts the launches of the three kernels
-(poseidon2_permute, constraint_quotient, logup_perm_phi) from zero and
-fails if a kernel it runs never launched. Prints the kernels' JSON line,
-then the device line last. Every time is printed beside the card's name
-and power limit.
+Every proof path counts the launches of the six kernels
+(poseidon2_permute, constraint_quotient, logup_perm_phi, open_eval,
+open_reduce, fri_fold) from zero and fails if a kernel it runs never
+launched. Prints the kernels' JSON line, then the device line last.
+Every time is printed beside the card's name and power limit.
 """
 
 import gzip
@@ -172,6 +182,7 @@ from lurk_tpu_torch.parallel import multihost
 from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
 from lurk_tpu_torch.stark.challenger import Challenger
 from lurk_tpu_torch.stark.fri import FriConfig
+from lurk_tpu_torch.stark.open_kernel import fri_fold, open_eval, open_reduce
 from lurk_tpu_torch.stark.quotient_kernel import (constraint_quotient,
                                                   logup_perm_phi)
 from lurk_tpu_torch.utils import codec
@@ -190,7 +201,10 @@ torch.cuda.synchronize()
 dt = time.perf_counter() - t0
 launches = {"poseidon2_permute": permute_mont_cuda.launches,
             "constraint_quotient": constraint_quotient.launches,
-            "logup_perm_phi": logup_perm_phi.launches}
+            "logup_perm_phi": logup_perm_phi.launches,
+            "open_eval": open_eval.launches,
+            "open_reduce": open_reduce.launches,
+            "fri_fold": fri_fold.launches}
 if not machine.verify(vk, proof, Challenger()):
     raise AssertionError("the proof does not verify")
 if "jax" in sys.modules:
@@ -212,15 +226,20 @@ def _sync():
 
 
 # the kernels whose launches every path counts, by their JSON names
-KERNELS = ("poseidon2_permute", "constraint_quotient", "logup_perm_phi")
+KERNELS = ("poseidon2_permute", "constraint_quotient", "logup_perm_phi",
+           "open_eval", "open_reduce", "fri_fold")
+OPEN_KERNELS = KERNELS[3:]
 
 
 def _kernel_fns() -> dict:
     from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
+    from lurk_tpu_torch.stark.open_kernel import (fri_fold, open_eval,
+                                                  open_reduce)
     from lurk_tpu_torch.stark.quotient_kernel import (constraint_quotient,
                                                       logup_perm_phi)
     return dict(zip(KERNELS, (permute_mont_cuda, constraint_quotient,
-                              logup_perm_phi)))
+                              logup_perm_phi, open_eval, open_reduce,
+                              fri_fold)))
 
 
 def _zero_counts() -> None:
@@ -344,7 +363,11 @@ def _prove_lurk_golden(dev, shard_size, want, machine_queries,
     """Prove an evaluated Lurk program (machine_queries, from
     golden.lurk_machine) on the card and hold its sha256 to `want`;
     returns (seconds, kernel launches, the prove's stats). Every kernel
-    of `kernels` must launch."""
+    of `kernels` must launch (fri_fold where the proof has an FRI layer
+    above the host tail), and the open kernels as often as plan_stats.py
+    counts."""
+    from lurk_tpu_torch import plan_stats
+    from lurk_tpu_torch.lair.execute import ShardingConfig
     from lurk_tpu_torch.stark import golden
     from lurk_tpu_torch.stark.challenger import Challenger
     _zero_counts()
@@ -361,7 +384,14 @@ def _prove_lurk_golden(dev, shard_size, want, machine_queries,
     if not machine.verify(vk, proof, Challenger()):
         raise AssertionError(f"{name} (shard size {shard_size}) does "
                              "not verify")
-    _require(name, launches, kernels)
+    planned = plan_stats.kernel_launches(
+        machine, machine_queries[1],
+        None if shard_size is None else ShardingConfig(shard_size))
+    if any(launches[k] != planned[k] for k in OPEN_KERNELS):
+        raise AssertionError(f"{name}: launches {launches}, plan_stats "
+                             f"counts {planned}")
+    _require(name, launches, [k for k in kernels
+                              if k != "fri_fold" or planned[k]])
     if stats["device_witness_chips"] <= 0:
         raise AssertionError(f"{name}: no device-made witness")
     return dt, launches, stats
@@ -654,9 +684,9 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
     if any(runs[1][1][k] != v for k, v in planned.items()):
         raise AssertionError(f"{label}fib(100000): launches {runs[1][1]}, "
                              f"plan_stats counts {planned}")
-    print(f"{label}fib(100000): the warm prove's constraint_quotient and "
-          f"logup_perm_phi launches equal plan_stats.py's count {planned} "
-          f"{on}")
+    print(f"{label}fib(100000): the warm prove's constraint_quotient, "
+          f"logup_perm_phi, open_eval, open_reduce and fri_fold launches "
+          f"equal plan_stats.py's count {planned} {on}")
     if runs[0][2] != runs[1][2]:
         raise AssertionError(f"{label}fib(100000): cold and warm proofs "
                              "differ")
@@ -981,7 +1011,8 @@ def cli_load(on: str, lurk_dir: Path) -> int:
     found = re.findall(
         r"\[prove-timing\] device_prove: .* (\d+) Poseidon2 kernel "
         r"launches, (\d+) constraint_quotient launches, (\d+) "
-        r"logup_perm_phi launches", res.stderr)
+        r"logup_perm_phi launches, (\d+) open_eval launches, (\d+) "
+        r"open_reduce launches, (\d+) fri_fold launches", res.stderr)
     if len(found) != 1:
         raise AssertionError(f"CLI prove launches {found}")
     launches = dict(zip(KERNELS, map(int, found[0])))
@@ -1402,7 +1433,7 @@ def quotient_kernels_full_width(dev, on: str, mqs) -> dict:
         return out
 
     tot = {k: dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                   bytes_ms=0.0, max_abs_err=0, chips=0) for k in KERNELS[1:]}
+                   bytes_ms=0.0, max_abs_err=0, chips=0) for k in KERNELS[1:3]}
     for chip in machine.chips:
         rows = chip.num_rows(shard) if chip_included(chip, shard) else 0
         if rows < dp._host_chip_min_rows():
@@ -1513,6 +1544,168 @@ def quotient_kernels_full_width(dev, on: str, mqs) -> dict:
     return tot
 
 
+def _open_bounds(kind: str, rows: int, w: int, n: int, accumulate: bool,
+                 sms: int, clock_hz: float) -> tuple:
+    """(bytes, bound ms, what bounds it) of one open kernel's function at
+    its shape: each input read once and each output written once; the
+    least field operations (a product by each weight, power or inverse;
+    the powers of z and the domain points by one product a row; the
+    inverses of x - z as one Montgomery batch: 3 extension multiplies
+    each)."""
+    em, ea = _EXT_MUL
+    if kind == "open_eval":          # rows = h
+        n_bytes = 4 * rows * w + 16 * n * w
+        muls = n * (4 * rows * w + em * rows)
+        adds = n * (4 * rows * w + ea * rows)
+    elif kind == "open_reduce":      # rows = H
+        n_bytes = 4 * rows * w + 16 * n * w + 16 * rows * (1 + accumulate)
+        muls = rows + n * rows * (4 * w + 3 * em + em) + _EXT_INV[0]
+        adds = n * rows * (4 * w + 1 + 3 * ea + ea + 8) + _EXT_INV[1]
+    else:                            # fri_fold, rows = n / 2 outputs
+        n_bytes = 16 * rows * (3 + accumulate)
+        muls = rows * (1 + 8 + em)
+        adds = rows * (8 + ea + 4 + 4 * accumulate)
+    return (n_bytes, *_kernel_bound(n_bytes, muls, adds, sms, clock_hz))
+
+
+def open_kernels_full_width(dev, on: str, mqs) -> dict:
+    """Phase 26: open_eval, open_reduce and fri_fold against their plain
+    versions on the card, bit for bit, at the shapes of phase 10's shard
+    0 (ShardingConfig(262144)): every height group of its four rounds
+    (plan_stats.open_groups), with random coefficient and LDE columns read
+    in place from wider matrices, random points (zeta and zeta * g where
+    the group has two), weights and y_alpha, each group's reduced openings
+    added into its height's codeword as device_open_rounds adds them; then
+    every FRI layer above the host tail from the shard's largest height,
+    each adding the codeword of the next height where there is one. Each
+    call's times (CUDA events): the kernel's launches on arguments packed
+    once (their output held to the plain version's too), the wrapper's
+    calls and the plain version's; its bound. Returns each kernel's totals
+    over the shard: ms, wrapper ms, plain ms, bound ms and what bounds it,
+    the largest absolute error."""
+    import torch
+    from lurk_tpu_torch import plan_stats
+    from lurk_tpu_torch.field import babybear as bb
+    from lurk_tpu_torch.field import ext as ext_t
+    from lurk_tpu_torch.stark import device_prover as dp
+    from lurk_tpu_torch.stark import open_kernel as ok
+    from lurk_tpu_torch.stark.fri import layer_shift
+    machine, _, _, q, cfg = mqs
+    groups = plan_stats.open_groups(machine, q, cfg)[0]
+    rng = np.random.default_rng(26)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = _max_sm_clock_hz()
+
+    def ext():
+        return tuple(int(v) for v in rng.integers(0, P_FIELD, 4))
+
+    def column(rows, w):
+        whole = torch.randint(0, P_FIELD, (rows, w + 3 + (w % 2 == 0)),
+                              dtype=torch.int32, device=dev)
+        return whole[:, 1:1 + w]
+
+    def held(name, got, want, label):
+        err = int((got.long() - want.long()).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} != plain on {label} (max abs err "
+                                 f"{err})")
+        return err
+
+    tot = {k: dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                   bytes_ms=0.0, max_abs_err=0, calls=0)
+           for k in OPEN_KERNELS}
+    runs = []
+    zeta = ext()
+    ro = {}
+    for rnd, log_h, w, n in groups:
+        h, big = 1 << log_h, 2 << log_h
+        label = f"{rnd} group of {h} rows x {w} columns, {n} point(s)"
+        g = bb.two_adic_generator_s(log_h) if log_h else 1
+        zs = [zeta, ext_t.emul_s(zeta, (g, 0, 0, 0))][:n]
+        coeffs, lde = column(h, w), column(big, w)
+        weights = rng.integers(0, P_FIELD, (n, w, 4))
+        ya = rng.integers(0, P_FIELD, (n, 4))
+        # open_eval
+        want = ok.eval_plain(coeffs, zs)
+        err = held("open_eval", ok.open_eval(coeffs, zs), want, label)
+        args = ok.eval_args(coeffs, zs)
+        k_ms = _event_ms(lambda: ok.launch_eval(args), 5)
+        _sync()
+        held("open_eval's timed launches", args["out"].tensor, want, label)
+        w_ms = _event_ms(lambda: ok.open_eval(coeffs, zs), 3)
+        p_ms = _event_ms(lambda: ok.eval_plain(coeffs, zs), 1)
+        runs.append(("open_eval", label, k_ms, w_ms, p_ms, err,
+                     _open_bounds("open_eval", h, w, n, False, sms, clock)))
+        # open_reduce, into the height's codeword where there is one
+        base = ro.get(log_h + 1)
+        copy = (lambda: None) if base is None else base.clone
+        want = ok.reduce_plain(copy(), lde, zs, weights, ya)
+        err = held("open_reduce", ok.open_reduce(copy(), lde, zs, weights,
+                                                 ya), want, label)
+        args = ok.reduce_args(copy(), lde, zs, weights, ya)
+        k_ms = _event_ms(lambda: ok.launch_reduce(args), 5)
+        _sync()
+        # six launches: the codeword plus six times the group's openings
+        expect = want if base is None else \
+            (base.long() + 6 * (want.long() - base.long())) % P_FIELD
+        held("open_reduce's timed launches", args["out"].tensor.long(),
+             expect.long(), label)
+        scratch = copy()
+        w_ms = _event_ms(lambda: ok.open_reduce(scratch, lde, zs, weights,
+                                                ya), 3)
+        p_ms = _event_ms(lambda: ok.reduce_plain(base, lde, zs, weights,
+                                                 ya), 1)
+        runs.append(("open_reduce", label, k_ms, w_ms, p_ms, err,
+                     _open_bounds("open_reduce", big, w, n, base is not None,
+                                  sms, clock)))
+        ro[log_h + 1] = want
+        del coeffs, lde, args, scratch
+    max_log = max(ro)
+    floor = max(dp._fri_host_tail_log(), machine.config.log_blowup)
+    for layer, log_n in enumerate(range(max_log, floor, -1)):
+        label = f"FRI layer {layer} ({1 << log_n} rows)"
+        cw = column(1 << log_n, 4).contiguous()
+        add = ro.get(log_n - 1)
+        beta, shift = ext(), layer_shift(max_log, layer)
+        want = ok.fold_plain(cw, beta, shift, add)
+        err = held("fri_fold", ok.fri_fold(cw, beta, shift, add), want,
+                   label)
+        args = ok.fold_args(cw, beta, shift, add)
+        k_ms = _event_ms(lambda: ok.launch_fold(args), 5)
+        _sync()
+        held("fri_fold's timed launches", args["out"].tensor, want, label)
+        w_ms = _event_ms(lambda: ok.fri_fold(cw, beta, shift, add), 3)
+        p_ms = _event_ms(lambda: ok.fold_plain(cw, beta, shift, add), 1)
+        runs.append(("fri_fold", label, k_ms, w_ms, p_ms, err,
+                     _open_bounds("fri_fold", 1 << (log_n - 1), 4, 1,
+                                  add is not None, sms, clock)))
+    for name, label, k_ms, w_ms, p_ms, err, (n_bytes, b_ms, b_by) in runs:
+        t = tot[name]
+        t["ms"] += k_ms
+        t["wrapper_ms"] += w_ms
+        t["plain_ms"] += p_ms
+        t["bound_ms"] += b_ms
+        t["bytes_ms"] += n_bytes / HBM_BYTES_PER_S * 1e3
+        t["max_abs_err"] = max(t["max_abs_err"], err)
+        t["calls"] += 1
+        print(f"{name} == plain on shard 0's {label}: kernel {k_ms:.4f} ms "
+              f"(wrapper {w_ms:.4f} ms), plain {p_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}) = {b_ms / k_ms:.3f} of the kernel's "
+              f"time {on}")
+    for name, t in tot.items():
+        t["bound_by"] = "bytes" if t.pop("bytes_ms") >= t["bound_ms"] \
+            else "operations"
+        print(f"{name} over shard 0's {t['calls']} calls ({sms} SMs at "
+              f"{clock / 1e6:.0f} MHz): kernel {t['ms']:.4f} ms (wrapper "
+              f"{t['wrapper_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms = {t['bound_ms'] / t['ms']:.3f} "
+              f"of the kernel's time, max abs err {t['max_abs_err']} {on}")
+        del t["calls"]
+    del ro
+    torch.cuda.empty_cache()
+    return tot
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1524,7 +1717,8 @@ def main() -> int:
     from lurk_tpu_torch.lair import native
     from lurk_tpu_torch.poseidon import cuda_kernel, perm, ref
     from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
-    from lurk_tpu_torch.stark import golden, hasher, quotient_kernel
+    from lurk_tpu_torch.stark import (golden, hasher, open_kernel,
+                                      quotient_kernel)
     from lurk_tpu_torch.stark.challenger import Challenger
     from lurk_tpu_torch.stark.fri import FriConfig
     from lurk_tpu_torch.utils import codec
@@ -1542,12 +1736,12 @@ def main() -> int:
 
     # 2. build: one nvcc for each source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         builds = [pool.submit(b.build, verbose=True)
-                  for b in (cuda_kernel, quotient_kernel)]
-        lib, qlib = (f.result() for f in builds)
+                  for b in (cuda_kernel, quotient_kernel, open_kernel)]
+        lib, qlib, olib = (f.result() for f in builds)
     print(f"build: {time.perf_counter() - t0:.3f}s {lib.name} {qlib.name} "
-          f"{on}")
+          f"{olib.name} {on}")
     torch.ones(1, device=dev)
     free, total = torch.cuda.mem_get_info(dev)
     outside = total - free - torch.cuda.memory_reserved(dev)
@@ -1739,6 +1933,10 @@ def main() -> int:
     # 25. this slice: the quotient kernels at full width
     quotient = quotient_kernels_full_width(dev, on, fib_mqs)
     marks.append(("phase 25", time.perf_counter()))
+
+    # 26. this slice: the open kernels at full width
+    opening = open_kernels_full_width(dev, on, fib_mqs)
+    marks.append(("phase 26", time.perf_counter()))
     del fib_mqs, fib_pipeline
     print("wall seconds: " + ", ".join(
         f"{label} {t - prev:.1f}" for (label, t), prev in
@@ -1783,7 +1981,14 @@ def main() -> int:
         "source": "lurk_tpu_torch/csrc/quotient.cu",
         "replaces": "lurk_tpu/stark/device_prover.py:933",
         **quotient["logup_perm_phi"],
-    }]
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "lurk_tpu_torch/csrc/open.cu",
+        "replaces": f"lurk_tpu/stark/device_prover.py:{line}",
+        **opening[name],
+    } for name, line in (("open_eval", 1605), ("open_reduce", 1677),
+                         ("fri_fold", 1742))]
     for k in kernels:
         name = k["name"]
         k["launches"] = fib_launches[name]

@@ -65,9 +65,9 @@ class Repl:
     def start_background_warmup(self):
         """Prepare this config's verifier on a daemon thread and, on a
         CUDA card, build the kernels' libraries (Poseidon2, the quotient
-        kernels), so that neither a first !(verify) nor a first !(prove)
-        waits for them. The
-        reference's !(prove) starts proving immediately
+        and the open kernels), so that neither a first !(verify) nor a
+        first !(prove) waits for them. The reference's !(prove) starts
+        proving immediately
         (src/core/cli/repl.rs:164-207). A failure here changes no path:
         the prove that needs what failed raises it again."""
         import os as _os
@@ -81,9 +81,10 @@ class Repl:
                 import torch
                 if torch.cuda.is_available():
                     from ..poseidon import cuda_kernel
-                    from ..stark import quotient_kernel
+                    from ..stark import open_kernel, quotient_kernel
                     cuda_kernel.build()
                     quotient_kernel.build()
+                    open_kernel.build()
             except Exception:
                 pass  # warmup is best-effort, never user-visible
 

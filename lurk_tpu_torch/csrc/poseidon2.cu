@@ -31,6 +31,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "on_device.cuh"
+
 namespace {
 
 constexpr uint32_t P = 0x78000001u;   // 2^31 - 2^27 + 1
@@ -160,27 +162,7 @@ int set_consts(const Consts<W>& sym, const uint32_t* full,
   return static_cast<int>(cudaMemcpyToSymbol(sym, &h, sizeof(h)));
 }
 
-// Runs body() with `device` current and sets the caller's device back
-// before returning: the runtime's current device belongs to the calling
-// host thread, and PyTorch keeps its own record of it, so an entry point
-// that left another device current would put the two out of step.
-// Returns body()'s cudaError_t, or the first error of the device switch.
-template <typename F>
-int on_device(int device, F body) {
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (prev != device) {
-    err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  int res = body();
-  if (prev != device) {
-    err = cudaSetDevice(prev);
-    if (res == 0 && err != cudaSuccess) res = static_cast<int>(err);
-  }
-  return res;
-}
+using lurk::on_device;
 
 }  // namespace
 

@@ -80,6 +80,7 @@
 #include <cuda_runtime.h>
 
 #include "babybear.cuh"
+#include "on_device.cuh"
 
 namespace {
 
@@ -575,26 +576,7 @@ perm_phi_kernel(const __grid_constant__ PermArgs a) {
   }
 }
 
-// Runs body() with `device` current and sets the caller's device back
-// before returning (the runtime's current device belongs to the calling
-// host thread, and PyTorch keeps its own record of it). Returns body()'s
-// cudaError_t, or the first error of the device switch.
-template <typename F>
-int on_device(int device, F body) {
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (prev != device) {
-    err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  int res = body();
-  if (prev != device) {
-    err = cudaSetDevice(prev);
-    if (res == 0 && err != cudaSuccess) res = static_cast<int>(err);
-  }
-  return res;
-}
+using lurk::on_device;
 
 // Bit d: the kernel may take SMEM_MAX bytes of dynamic shared memory on
 // device d (the attribute belongs to the kernel on each device).

@@ -40,7 +40,8 @@ _STATE_LOCK = threading.Lock()
 def build(verbose: bool = False) -> Path:
     """Compile csrc/poseidon2.cu into build/ (utils/cuda_build.py). Returns
     the library path; raises on a failed build."""
-    return cuda_build.build("poseidon2", "poseidon2.cu", verbose=verbose)
+    return cuda_build.build("poseidon2", "poseidon2.cu", ("on_device.cuh",),
+                            verbose=verbose)
 
 
 @lru_cache(maxsize=1)

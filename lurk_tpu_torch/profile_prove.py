@@ -10,8 +10,8 @@ CUDA activities). Prints the card's name and power limit, the warm prove's
 wall seconds, the device busy time (the union of the intervals of every
 device event: kernels and copies) and its share of the wall, the number of
 device events, the total time and launches of each hand-written kernel
-(Poseidon2, constraint_quotient, logup_perm_phi), and the device kernels
-by total time. With --trace, writes the chrome trace there. Needs a card;
+(Poseidon2, constraint_quotient, logup_perm_phi, open_eval, open_reduce,
+fri_fold), and the device kernels by total time. With --trace, writes the chrome trace there. Needs a card;
 it exits non-zero without one.
 """
 
@@ -55,6 +55,7 @@ def main(argv=None) -> int:
     from .poseidon.cuda_kernel import permute_mont_cuda
     from .stark.challenger import Challenger
     from .stark.fri import FriConfig
+    from .stark.open_kernel import fri_fold, open_eval, open_reduce
     from .stark.quotient_kernel import constraint_quotient, logup_perm_phi
 
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -84,7 +85,10 @@ def main(argv=None) -> int:
     kernels = {"Poseidon2": (permute_mont_cuda, "perm_kernel"),
                "constraint_quotient": (constraint_quotient,
                                        "quotient_kernel"),
-               "logup_perm_phi": (logup_perm_phi, "perm_phi_kernel")}
+               "logup_perm_phi": (logup_perm_phi, "perm_phi_kernel"),
+               "open_eval": (open_eval, "open_eval_kernel"),
+               "open_reduce": (open_reduce, "open_reduce_kernel"),
+               "fri_fold": (fri_fold, "fri_fold_kernel")}
     for fn, _ in kernels.values():
         fn.launches = 0
     with torch.profiler.profile(activities=acts) as prof:

@@ -17,9 +17,11 @@ operand of each product in Montgomery form because the TPU has no 64-bit
 multiply; the values are the same, so this port multiplies canonical
 values directly. On a CUDA device every Poseidon2 permutation (Merkle
 leaves and nodes) goes through the CUDA kernel (poseidon/cuda_kernel.py),
-and the plan-driven perm trace's batch contributions and the
-constraint-VM quotient's fold through the kernels of
-stark/quotient_kernel.py.
+the plan-driven perm trace's batch contributions and the constraint-VM
+quotient's fold through the kernels of stark/quotient_kernel.py, and the
+opened values, the reduced openings and the FRI folds through those of
+stark/open_kernel.py (the eager functions here are their plain versions,
+which the CPU runs).
 
 Ported: mod sums, the device Merkle trees, the committed rounds (LDE +
 tree), the plan-driven LogUp permutation trace, the constraint-VM
@@ -1121,6 +1123,7 @@ def device_fri_prove(codewords: Dict[int, object], config: FriConfig,
     from .fri import layer_shift, fold_codeword, _pair_matrix
     from ..field import ext_np as E_np
     from . import merkle as host_merkle
+    from .open_kernel import fri_fold
     max_log = max(codewords)
     current = codewords[max_log]
     layer_trees: list = []          # DTree (device) or merkle tree (host)
@@ -1161,19 +1164,16 @@ def device_fri_prove(codewords: Dict[int, object], config: FriConfig,
             layer_trees.append(tree)
             challenger.observe_many(tree.root)
             beta = challenger.sample_ext()
-            current = _fold(current, ext_scalar_dev(beta, current.device),
-                            _inv_2x_dev(log_n, layer_shift(max_log, layer),
-                                        current.device))
+            # the fold adds the input codeword of the next height
+            current = fri_fold(current, beta, layer_shift(max_log, layer),
+                               codewords.get(log_n - 1))
         log_n -= 1
         layer += 1
-        if log_n in codewords:
+        if on_host and log_n in codewords:
             add = codewords[log_n]
-            if on_host:
-                if isinstance(add, torch.Tensor):
-                    add = bb.to_numpy(add)
-                current = E_np.eadd(current, np.asarray(add, np.uint64))
-            else:
-                current = bb.fadd(current, add)
+            if isinstance(add, torch.Tensor):
+                add = bb.to_numpy(add)
+            current = E_np.eadd(current, np.asarray(add, np.uint64))
     final_rows = current if isinstance(current, np.ndarray) \
         else bb.to_numpy(current)
     final = tuple(int(x) for x in final_rows[0])
@@ -1244,18 +1244,20 @@ def device_open_rounds(rounds: List[DRound],
     (exact mod-p sums are order-insensitive)."""
     from ..field import ext_np as E_np
     from . import merkle as host_merkle
+    from .open_kernel import open_eval, open_reduce
 
     # opened values: evaluate each group's coefficient concat at the union
-    # of its matrices' points, then scatter back per matrix. All (group,
-    # point) evaluations ride ONE device->host transfer.
+    # of its matrices' points (one open_eval per group), then scatter back
+    # per matrix. All (group, point) evaluations ride ONE device->host
+    # transfer.
     t0 = _time.perf_counter()
     pending = []                           # (rnd_i, group_i, z, dev (w,4))
     for ri, (rnd, rnd_points) in enumerate(zip(rounds, points)):
         for gi, ((log_h, idxs), gcoeffs) in enumerate(
                 zip(rnd.groups, rnd.group_coeffs)):
-            for z in _group_points(rnd, rnd_points, idxs):
-                zp = device_ext_powers(z, 1 << log_h, gcoeffs.device)
-                pending.append((ri, gi, z, _eval_coeffs(gcoeffs, zp)))
+            zs = _group_points(rnd, rnd_points, idxs)
+            vals = open_eval(gcoeffs, zs)          # (points, w, 4)
+            pending += [(ri, gi, z, vals[k]) for k, z in enumerate(zs)]
     if pending:
         joined = bb.to_numpy(torch.cat([d for *_, d in pending], dim=0))
     t0 = _tlog("    opened-values eval+transfer", t0)
@@ -1302,19 +1304,19 @@ def device_open_rounds(rounds: List[DRound],
                 alpha_cnt += w
 
     ro: Dict[int, torch.Tensor] = {}
-    inv_xz_cache: Dict[tuple, torch.Tensor] = {}
+    inv_xz_cache: Dict[tuple, torch.Tensor] = {}   # the plain version's
     for ri, (rnd, rnd_points, rnd_opened) in enumerate(
             zip(rounds, points, opened)):
         for gi, (log_h, idxs) in enumerate(rnd.groups):
             log_H = log_h + LOG_BLOWUP
             lde = rnd.trees[gi][1].concat              # (H, W_total)
-            device = lde.device
             W_total = int(lde.shape[1])
-            for z in _group_points(rnd, rnd_points, idxs):
-                # alpha-power weights for every participating matrix
-                # (zeros elsewhere: zero weight = excluded)
-                weights = np.zeros((W_total, 4), np.uint64)
-                y_alpha = np.zeros(4, np.uint64)
+            zs = _group_points(rnd, rnd_points, idxs)
+            # alpha-power weights for every participating matrix, per
+            # point (zeros elsewhere: zero weight = excluded)
+            weights = np.zeros((len(zs), W_total, 4), np.uint64)
+            y_alpha = np.zeros((len(zs), 4), np.uint64)
+            for k, z in enumerate(zs):
                 off = 0
                 for i in idxs:
                     w = rnd.widths[i]
@@ -1326,25 +1328,15 @@ def device_open_rounds(rounds: List[DRound],
                             continue
                         apows = host_pcs.ext_powers_from(
                             alpha, offsets[(ri, i, pi)], w)
-                        weights[off:off + w] = \
-                            (weights[off:off + w] + apows) % np.uint64(P)
+                        weights[k, off:off + w] = \
+                            (weights[k, off:off + w] + apows) % np.uint64(P)
                         ys_arr = np.asarray(rnd_opened[i][pi], np.uint64)
                         ya = E_np.emul(ys_arr, apows).sum(axis=0) \
                             % np.uint64(P)
-                        y_alpha = (y_alpha + ya) % np.uint64(P)
+                        y_alpha[k] = (y_alpha[k] + ya) % np.uint64(P)
                     off += w
-                inv_xz = inv_xz_cache.get((log_H, z))
-                if inv_xz is None:
-                    inv_xz = _inv_xz(_xs_dev(log_H, device),
-                                     ext_scalar_dev(z, device))
-                    inv_xz_cache[(log_H, z)] = inv_xz
-                contrib = _reduce_chunked(
-                    lde, torch.from_numpy(weights.astype(np.int64))
-                    .to(device), ext_scalar_dev(y_alpha, device), inv_xz)
-                if log_H in ro:
-                    ro[log_H] = bb.fadd(ro[log_H], contrib)
-                else:
-                    ro[log_H] = contrib
+            ro[log_H] = open_reduce(ro.get(log_H), lde, zs, weights,
+                                    y_alpha, inv_xz_cache)
 
     t0 = _tlog("    reduced codewords (dispatch)", t0)
     fri_proof, _layer_trees = device_fri_prove(ro, config, challenger)
@@ -1403,10 +1395,11 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
     mode (`modeled_prove_bytes`), the chips, padded cells and host-clock
     seconds of the witnesses made on the device (dispatch: the device runs
     on asynchronously) or on the host and uploaded, and the prove's
-    launches of the Poseidon2, constraint_quotient and logup_perm_phi
-    kernels (`kernel_launches`, `quotient_launches`, `perm_launches`,
-    printed to stderr under LURK_TPU_PROVE_TIMING=1, so that a CLI run
-    reports them). On a CUDA
+    launches of the Poseidon2, constraint_quotient, logup_perm_phi,
+    open_eval, open_reduce and fri_fold kernels (`kernel_launches`,
+    `quotient_launches`, `perm_launches`, `open_eval_launches`,
+    `open_reduce_launches`, `fri_fold_launches`, printed to stderr under
+    LURK_TPU_PROVE_TIMING=1, so that a CLI run reports them). On a CUDA
     device also the measured peaks: `peak_allocated_bytes`,
     `peak_reserved_bytes` and `phase_peaks`, one dict per phase (its
     allocated and reserved peaks, the allocated memory at its end and the
@@ -1414,13 +1407,19 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
     from ..lair.chips import chip_included
     from ..poseidon.cuda_kernel import permute_mont_cuda
     from .machine import MachineProof
+    from .open_kernel import fri_fold, open_eval, open_reduce
     from .quotient_kernel import constraint_quotient, logup_perm_phi
     from . import hbm
 
     device = torch.device(device) if device is not None else default_device()
     mem = _PhasePeaks(device)
-    launches0 = (permute_mont_cuda.launches, constraint_quotient.launches,
-                 logup_perm_phi.launches)
+    counted = {"kernel_launches": permute_mont_cuda,
+               "quotient_launches": constraint_quotient,
+               "perm_launches": logup_perm_phi,
+               "open_eval_launches": open_eval,
+               "open_reduce_launches": open_reduce,
+               "fri_fold_launches": fri_fold}
+    launches0 = {k: fn.launches for k, fn in counted.items()}
     shards, hbm_budget = hbm.plan_shards(machine, queries, shard_config,
                                          device)
     pv = queries.expect_public_values()
@@ -1562,11 +1561,8 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
         if keep_rounds:
             kept_rounds[si] = None        # fully consumed: free its trees
         del main_round
-    stats["kernel_launches"], stats["quotient_launches"], \
-        stats["perm_launches"] = (
-            permute_mont_cuda.launches - launches0[0],
-            constraint_quotient.launches - launches0[1],
-            logup_perm_phi.launches - launches0[2])
+    stats.update({k: fn.launches - launches0[k]
+                  for k, fn in counted.items()})
     if mem.device is not None:
         want = dict(modeled)
         stats["phase_peaks"] = [
@@ -1578,7 +1574,10 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
         print(f"[prove-timing] device_prove: {len(shards)} shard(s), "
               f"{stats['kernel_launches']} Poseidon2 kernel launches, "
               f"{stats['quotient_launches']} constraint_quotient launches, "
-              f"{stats['perm_launches']} logup_perm_phi launches",
+              f"{stats['perm_launches']} logup_perm_phi launches, "
+              f"{stats['open_eval_launches']} open_eval launches, "
+              f"{stats['open_reduce_launches']} open_reduce launches, "
+              f"{stats['fri_fold_launches']} fri_fold launches",
               file=_sys.stderr, flush=True)
     return MachineProof(shard_proofs, list(pv))
 

@@ -32,8 +32,10 @@ by the prover's own chunk constants:
                   it; on CUDA: the constraint_quotient kernel's int32
                   fold (the kernel keeps its registers in shared memory);
                   then the epilogue NTTs
-  open            the int64 products of one _open_rows block of a group's
-                  coefficients or LDE, the reduced codewords, FRI layers
+  open            on the CPU: the int64 products of one _open_rows block
+                  of a group's coefficients or LDE and the reduced
+                  codewords; on CUDA: the open kernels' small buffers and
+                  the int32 reduced codewords; FRI layers
 
 The stage transients follow the prover's device: a CUDA device's are the
 kernels' buffers, the CPU's the plain versions' (so that the CPU's plans
@@ -193,12 +195,22 @@ def _quotient_transient(c: ChipShape, cuda: bool) -> int:
                     + 352 * c.batches) + 512 * c.h)
 
 
-def _open_transient(groups: Dict[int, int]) -> int:
-    """device_open_rounds: one _open_rows block of a group's coefficients
-    or LDE and its products in int64, and the group's reduced codewords."""
+def _open_transient(groups: List[Tuple[int, int]], cuda: bool) -> int:
+    """device_open_rounds over the (height, width) groups of a shard's
+    rounds. On CUDA (the open kernels of stark/open_kernel.py): a group's
+    opened values, their 64-bit accumulators and its staged weights (at
+    most two points: 96 B a column), and the reduced codewords, one (2h,
+    4) int32 per height, all alive until FRI. On the CPU: one _open_rows
+    block of a group's coefficients or LDE and its products in int64, and
+    the group's reduced codewords."""
     from .device_prover import LDE_CHUNK_CELLS
-    return max((24 * min(2 * h * w, LDE_CHUNK_CELLS) + 256 * h
-                for h, w in groups.items()), default=0)
+    if not groups:
+        return 0
+    if cuda:
+        return max(96 * w for _, w in groups) + \
+            32 * sum({h for h, _ in groups})
+    return max(24 * min(2 * h * w, LDE_CHUNK_CELLS) + 256 * h
+               for h, w in groups)
 
 
 class _Shard:
@@ -226,10 +238,9 @@ class _Shard:
         self.t_quot = max((_quotient_transient(c, cuda) for c in dev),
                           default=0)
         self.t_quot_commit = _commit_transient(quot)
-        all_groups = list(main.items()) + list(perm.items()) + \
-            list(quot.items())
-        self.t_open = max(_open_transient(dict([g])) for g in all_groups) \
-            if all_groups else 0
+        self.t_open = _open_transient(list(main.items())
+                                      + list(perm.items())
+                                      + list(quot.items()), cuda)
         self.fri = 200 * max((c.h for c in shapes), default=0)
         self.heights = {c.h for c in dev}
         self.t_max = max(self.t_witness, self.t_commit, self.t_perm,

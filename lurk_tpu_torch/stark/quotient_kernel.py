@@ -119,8 +119,9 @@ _PermArgs = _struct("PermArgs", PERM_FIELDS)
 
 
 def build(verbose: bool = False):
-    """Compile csrc/quotient.cu (with csrc/babybear.cuh) into build/."""
-    return cuda_build.build("quotient", "quotient.cu", ("babybear.cuh",),
+    """Compile csrc/quotient.cu (with its headers) into build/."""
+    return cuda_build.build("quotient", "quotient.cu",
+                            ("babybear.cuh", "on_device.cuh"),
                             verbose=verbose)
 
 

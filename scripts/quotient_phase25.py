@@ -1,13 +1,15 @@
-"""Phase 25 of chip_smoke.py alone: constraint_quotient and logup_perm_phi
-bit-equal to their plain versions and timed on the device chips of Lurk
-fib(100000)'s shard 0 at ShardingConfig(262144).
+"""Phases 25 and 26 of chip_smoke.py alone: constraint_quotient and
+logup_perm_phi bit-equal to their plain versions and timed on the device
+chips of Lurk fib(100000)'s shard 0 at ShardingConfig(262144); then, where
+the tree's chip_smoke.py has phase 26, open_eval, open_reduce and
+fri_fold at the same shard's shapes.
 
     python3 scripts/quotient_phase25.py [TREE]
 
 TREE (default: this checkout) is the root of the checkout whose
 chip_smoke.py and lurk_tpu_torch to run, so that one call on the card can
 time two trees in turns (parent, change, change, parent). Needs a card;
-prints the card's name and power limit and each chip's line as
+prints the card's name and power limit and each chip's or group's line as
 chip_smoke.py does, then the totals as JSON.
 """
 
@@ -37,9 +39,12 @@ def main() -> int:
     toplevel, zstore, _ = build_lurk_toplevel()
     machine = new_machine(toplevel, FriConfig())
     _, q = evaluate(toplevel, zstore, chip_smoke.FIB100K_CODE)
-    tot = chip_smoke.quotient_kernels_full_width(
-        torch.device("cuda"), f"[{gpu}]",
-        (machine, None, None, q, ShardingConfig(262144)))
+    mqs = (machine, None, None, q, ShardingConfig(262144))
+    tot = chip_smoke.quotient_kernels_full_width(torch.device("cuda"),
+                                                 f"[{gpu}]", mqs)
+    if hasattr(chip_smoke, "open_kernels_full_width"):
+        tot.update(chip_smoke.open_kernels_full_width(torch.device("cuda"),
+                                                      f"[{gpu}]", mqs))
     print(json.dumps(tot))
     return 0
 

@@ -4,7 +4,11 @@ golden proof, and a default-config prove in a process capped to the
 memory the planner's model asks for; the constraint-quotient and LogUp
 perm-trace kernels (stark/quotient_kernel.py) against their plain
 versions on every plan chip of golden.LURK_PROGRAM, direct and compiled,
-and the Lurk golden proof through them. Every test skips without a card.
+and the Lurk golden proof through them; the PCS-opening and FRI-fold
+kernels (stark/open_kernel.py) against their plain versions at heights
+2^1 to 2^19 and widths 1 to 300, from three threads at once, in
+device_open_rounds (a repeated point) and in the Lurk golden proof. Every
+test skips without a card.
 
 This file imports no jax (the card's machine has none), so it runs there
 without tests/conftest.py:
@@ -340,3 +344,205 @@ def test_lurk_golden_through_the_quotient_kernels(cuda, monkeypatch):
     assert qk.constraint_quotient.launches > q0
     assert qk.logup_perm_phi.launches > p0
     assert machine.verify(vk, proof, Challenger())
+
+
+# ---------------------------------------------------------------------------
+# the PCS-opening and FRI-fold kernels (stark/open_kernel.py)
+# ---------------------------------------------------------------------------
+
+def _special_points(rng, n):
+    """n ext points, the last with 0, 1, p - 1 and a value past 2^30."""
+    return [_ext(rng) for _ in range(n - 1)] + [(0, 1, bb.P - 1, 1 << 30)]
+
+
+@pytest.mark.parametrize("log_h", [1, 12, 17])
+@pytest.mark.parametrize("w", [1, 7, 300])
+def test_open_eval_kernel_matches_plain(cuda, log_h, w):
+    from lurk_tpu_torch.stark import open_kernel as ok
+    rng = np.random.default_rng(30 + log_h + w)
+    coeffs, = _odd_stride_slices(rng, 1 << log_h, [w], cuda)
+    for n in (1, 2):
+        zs = _special_points(rng, n)
+        before = ok.open_eval.launches
+        got = ok.open_eval(coeffs, zs)
+        assert ok.open_eval.launches == before + 1
+        want = ok.eval_plain(coeffs, zs)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and tuple(got.shape) == (n, w, 4)
+        assert torch.equal(got, want), (log_h, w, n)
+
+
+@pytest.mark.parametrize("log_big", [1, 12, 17])
+@pytest.mark.parametrize("w", [1, 7, 300])
+def test_open_reduce_kernel_matches_plain(cuda, log_big, w):
+    """Into a new codeword and into a given one; the second point of the
+    two-point case is the domain's x at row 1 (x - z = 0 there)."""
+    from lurk_tpu_torch.stark import open_kernel as ok
+    from lurk_tpu_torch.field.ntt import GENERATOR
+    rng = np.random.default_rng(40 + log_big + w)
+    big = 1 << log_big
+    lde, = _odd_stride_slices(rng, big, [w], cuda)
+    x1 = GENERATOR * bb.two_adic_generator_s(log_big) % bb.P
+    for zs in (_special_points(rng, 1), [_ext(rng), (x1, 0, 0, 0)]):
+        weights = rng.integers(0, bb.P, (len(zs), w, 4))
+        weights[0, 0] = (0, 1, bb.P - 1, 1 << 30)
+        y_alpha = rng.integers(0, bb.P, (len(zs), 4))
+        for ro in (None, torch.from_numpy(rng.integers(
+                0, bb.P, (big, 4)).astype(np.int32)).to(cuda)):
+            want = ok.reduce_plain(None if ro is None else ro.clone(), lde,
+                                   zs, weights, y_alpha)
+            before = ok.open_reduce.launches
+            got = ok.open_reduce(ro, lde, zs, weights, y_alpha)
+            assert ok.open_reduce.launches == before + 1
+            torch.cuda.synchronize()
+            assert ro is None or got is ro
+            assert got.dtype == torch.int32 and tuple(got.shape) == (big, 4)
+            assert torch.equal(got, want), (log_big, w, len(zs))
+
+
+@pytest.mark.parametrize("log_n", [1, 12, 19])
+def test_fri_fold_kernel_matches_plain(cuda, log_n):
+    from lurk_tpu_torch.stark import open_kernel as ok
+    from lurk_tpu_torch.stark.fri import layer_shift
+    rng = np.random.default_rng(50 + log_n)
+    n = 1 << log_n
+    cw = torch.from_numpy(rng.integers(0, bb.P, (n, 4)).astype(np.int32)) \
+        .to(cuda)
+    cw[0] = torch.tensor([0, 1, bb.P - 1, 1 << 30])
+    add = torch.from_numpy(rng.integers(0, bb.P, (n // 2, 4))
+                           .astype(np.int32)).to(cuda)
+    for extra in (None, add):
+        beta, shift = _ext(rng), layer_shift(log_n + 2, 2)
+        before = ok.fri_fold.launches
+        got = ok.fri_fold(cw, beta, shift, extra)
+        assert ok.fri_fold.launches == before + 1
+        want = ok.fold_plain(cw, beta, shift, extra)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, want), log_n
+
+
+def test_open_kernels_reject_layouts_they_do_not_take(cuda):
+    from lurk_tpu_torch.stark import open_kernel as ok
+    rng = np.random.default_rng(6)
+    coeffs, = _odd_stride_slices(rng, 64, [5], cuda)
+    z = [_ext(rng)]
+    for bad in (coeffs.T.contiguous().T, coeffs.to(torch.int64)):
+        with pytest.raises(ValueError):
+            ok.open_eval(bad, z)
+    with pytest.raises(ValueError):
+        ok.open_eval(coeffs, z * (ok.MAX_POINTS + 1))
+    with pytest.raises(ValueError):               # not a power of two rows
+        ok.open_reduce(None, coeffs[:48], z, np.zeros((1, 5, 4)),
+                       np.zeros((1, 4)))
+    with pytest.raises(ValueError):               # a codeword on the CPU
+        ok.open_reduce(torch.zeros((64, 4), dtype=torch.int32), coeffs, z,
+                       np.zeros((1, 5, 4)), np.zeros((1, 4)))
+    cw = torch.zeros((64, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        ok.fri_fold(cw[::2], z[0], 31)
+    with pytest.raises(ValueError):
+        ok.fri_fold(cw, z[0], 31, cw)
+
+
+def test_open_kernels_from_threads_at_once(cuda):
+    """Three host threads launch each open kernel at once on one card, as
+    parallel/shard_prover.py's threads do on a mesh whose slots repeat a
+    device: every output equals the plain version and every launch is
+    counted."""
+    import threading
+    from lurk_tpu_torch.stark import open_kernel as ok
+    rng = np.random.default_rng(7)
+    cases = []
+    for w in (3, 40, 260):
+        coeffs, lde = _odd_stride_slices(rng, 1 << 10, [w, w], cuda)
+        zs = [_ext(rng), _ext(rng)]
+        weights = rng.integers(0, bb.P, (2, w, 4))
+        ya = rng.integers(0, bb.P, (2, 4))
+        cw = torch.from_numpy(rng.integers(0, bb.P, (1 << 11, 4))
+                              .astype(np.int32)).to(cuda)
+        cases.append((coeffs, lde, zs, weights, ya, cw, _ext(rng)))
+    before = [f.launches for f in (ok.open_eval, ok.open_reduce, ok.fri_fold)]
+    errors, start = [], threading.Barrier(len(cases))
+
+    def work(case):
+        coeffs, lde, zs, weights, ya, cw, beta = case
+        try:
+            start.wait()
+            outs = [(ok.open_eval(coeffs, zs),
+                     ok.open_reduce(None, lde, zs, weights, ya),
+                     ok.fri_fold(cw, beta, 31)) for _ in range(50)]
+            torch.cuda.synchronize()
+            want = (ok.eval_plain(coeffs, zs),
+                    ok.reduce_plain(None, lde, zs, weights, ya),
+                    ok.fold_plain(cw, beta, 31))
+            assert all(torch.equal(g, w) for o in outs
+                       for g, w in zip(o, want))
+        except Exception as e:                       # reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=work, args=(c,)) for c in cases]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    after = [f.launches for f in (ok.open_eval, ok.open_reduce, ok.fri_fold)]
+    assert [a - b for a, b in zip(after, before)] == [150] * 3
+
+
+def test_open_rounds_with_a_repeated_point(cuda):
+    """device_open_rounds on rounds of 1-row matrices (whose point list
+    repeats zeta, as zeta * g == zeta at height 1), 16-row and 2^17-row
+    ones, with every FRI layer on the device: the PCS proof on the card is
+    the CPU's, byte for byte, and every open kernel ran."""
+    from lurk_tpu_torch.stark import open_kernel as ok
+    from lurk_tpu_torch.stark.challenger import Challenger
+    from lurk_tpu_torch.stark.fri import FriConfig
+    from lurk_tpu_torch.utils import codec
+    rng = np.random.default_rng(8)
+    shapes = [(1, 3), (1, 2), (16, 5), (1 << 17, 4)]
+    mats = [rng.integers(0, bb.P, s).astype(np.uint64) for s in shapes]
+    zeta = _ext(rng)
+    g16 = bb.two_adic_generator_s(4)
+    g17 = bb.two_adic_generator_s(17)
+    from lurk_tpu_torch.field import ext as ext_t
+    points = [[[zeta, zeta], [zeta], [zeta, ext_t.emul_s(zeta, (g16, 0, 0, 0))],
+               [zeta, ext_t.emul_s(zeta, (g17, 0, 0, 0))]]]
+    config = FriConfig(1, 4, 1)
+    proofs = []
+    counts = [f.launches for f in (ok.open_eval, ok.open_reduce, ok.fri_fold)]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("LURK_TPU_FRI_HOST_TAIL_LOG", "0")
+        for device in (torch.device("cpu"), cuda):
+            rnd = dp.dcommit([m.copy() for m in mats], device)
+            ch = Challenger()
+            for root in rnd.roots:
+                ch.observe_many(root)
+            proofs.append(codec.encode(dp.device_open_rounds(
+                [rnd], points, config, ch)))
+    assert proofs[0] == proofs[1]
+    after = [f.launches for f in (ok.open_eval, ok.open_reduce, ok.fri_fold)]
+    assert [a - b for a, b in zip(after, counts)] == [3, 3, 17]
+
+
+def test_lurk_golden_through_the_open_kernels(cuda, monkeypatch):
+    """golden.LURK_PROGRAM with every chip on the device path and every
+    FRI layer on the device: the proof keeps lurk_tpu's sha256, and each
+    open kernel ran as often as plan_stats counts."""
+    from lurk_tpu_torch import plan_stats
+    from lurk_tpu_torch.stark import open_kernel as ok
+    from lurk_tpu_torch.stark.challenger import Challenger
+    monkeypatch.setenv("LURK_TPU_DEVICE_CHIP_MIN_ROWS", "0")
+    monkeypatch.setenv("LURK_TPU_FRI_HOST_TAIL_LOG", "0")
+    fns = (ok.open_eval, ok.open_reduce, ok.fri_fold)
+    before = [f.launches for f in fns]
+    machine, vk, proof, digest = golden.lurk_proof(cuda)
+    assert digest == golden.GOLDEN_LURK_SHA256
+    assert machine.verify(vk, proof, Challenger())
+    planned = plan_stats.kernel_launches(
+        machine, golden.lurk_machine(golden.LURK_PROGRAM,
+                                     FriConfig(1, 8, 2))[1], None)
+    got = [f.launches - b for f, b in zip(fns, before)]
+    assert got == [planned["open_eval"], planned["open_reduce"],
+                   planned["fri_fold"]]
+    assert min(got) > 0

@@ -224,3 +224,18 @@ def test_cuda_models_the_quotient_kernels_buffers(monkeypatch):
     # the model is the named device's, whatever this process has
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert dict(hbm.prove_phases(_MACHINE, shards, "full", "cpu")) == cpu
+
+
+def test_cuda_models_the_open_kernels_buffers():
+    """On CUDA the open phase holds the open kernels' small buffers and the
+    int32 reduced codewords, one (2h, 4) a height, not the plain versions'
+    int64 row blocks, which the CPU's model keeps."""
+    groups = [(1 << 18, 520), (1 << 17, 218), (1 << 18, 660), (16, 120)]
+    cuda = hbm._open_transient(groups, cuda=True)
+    assert cuda == 96 * 660 + 32 * ((1 << 18) + (1 << 17) + 16)
+    assert hbm._open_transient(groups, cuda=False) > 10 * cuda
+    assert hbm._open_transient([], cuda=True) == 0
+    shards = _shards(1 << 18, 4)
+    cpu = dict(hbm.prove_phases(_MACHINE, shards, "full", "cpu"))
+    on_card = dict(hbm.prove_phases(_MACHINE, shards, "full", "cuda"))
+    assert on_card["shard0 open"] < cpu["shard0 open"]
