@@ -38,9 +38,9 @@ Phases (each raises on failure; nothing is caught):
      constraint_quotient, logup_perm_phi, open_eval, open_reduce and
      fri_fold launches equal plan_stats.py's count (one quotient launch
      per device chip, one perm launch per such chip with interactions, one
-     open_eval and one open_reduce per height group of every round of
-     every shard, one fri_fold per FRI layer above the host tail; phase 16
-     too);
+     open_eval per shard for all of its height groups, one open_reduce per
+     height group of every round of every shard, one fri_fold per FRI
+     layer above the host tail; phase 16 too);
  11. the REPL: one lurk_tpu_torch REPL at the CLI's default config
      (PRODUCTION_CONFIG) loads the demo corpus (golden.DEMO_FILES, `!(clear)`
      before each); every `!(prove)` runs on the card, every proof file
@@ -113,9 +113,12 @@ Phases (each raises on failure; nothing is caught):
  26. the open kernels at full width: open_eval, open_reduce and fri_fold
      (stark/open_kernel.py) bit-equal to their plain versions at the
      shapes of phase 10's shard 0: every height group of its four rounds
-     (plan_stats.open_groups) and every FRI layer above the host tail,
-     each timed with CUDA events (the kernel's launches alone, the
-     wrapper's calls) beside its plain version and its bound.
+     (plan_stats.open_groups) in one open_eval launch, an all-(p - 1)
+     column of 2^15 + 3 rows, each group's open_reduce, and every FRI
+     layer above the host tail as pair matrices; each timed with CUDA
+     events (the kernel's launches alone, the wrapper's calls) beside its
+     plain version, its bound (bytes over HBM against products at the
+     tensor cores' exact rate) and the CUDA cores' operations bound.
 
 Every prove of phases 10, 16 and 22-24 starts from an emptied allocator
 cache and holds the memory model: the reserved peak is at most the
@@ -215,8 +218,11 @@ print(json.dumps({"pid": int(pid), "s": dt, "launches": launches,
                   "shards": len(proof.shard_proofs),
                   "sha256": hashlib.sha256(codec.encode(proof)).hexdigest()}))
 '''
-# H100 SXM data sheet: HBM3 at 3.35 TB/s
+# H100 SXM data sheet: HBM3 at 3.35 TB/s; 1,979 TOP/s of dense int8 on the
+# tensor cores (two operations a MAC), so a 31-bit product made exactly of
+# 16 u8 x u8 MACs (open.cu's open_eval) at most this often
 HBM_BYTES_PER_S = 3.35e12
+EXACT_PRODUCTS_PER_S = 1979e12 / 2 / 16
 P_FIELD = 2013265921
 
 
@@ -1544,9 +1550,9 @@ def quotient_kernels_full_width(dev, on: str, mqs) -> dict:
     return tot
 
 
-def _open_bounds(kind: str, rows: int, w: int, n: int, accumulate: bool,
-                 sms: int, clock_hz: float) -> tuple:
-    """(bytes, bound ms, what bounds it) of one open kernel's function at
+def _open_ops(kind: str, rows: int, w: int, n: int, accumulate: bool
+              ) -> tuple:
+    """(bytes, base-field products, adds) of one open kernel's function at
     its shape: each input read once and each output written once; the
     least field operations (a product by each weight, power or inverse;
     the powers of z and the domain points by one product a row; the
@@ -1565,28 +1571,51 @@ def _open_bounds(kind: str, rows: int, w: int, n: int, accumulate: bool,
         n_bytes = 16 * rows * (3 + accumulate)
         muls = rows * (1 + 8 + em)
         adds = rows * (8 + ea + 4 + 4 * accumulate)
-    return (n_bytes, *_kernel_bound(n_bytes, muls, adds, sms, clock_hz))
+    return n_bytes, muls, adds
+
+
+def _open_bound(ops: tuple, sms: int, clock_hz: float) -> dict:
+    """The least time the card could take for the work of `ops` (bytes,
+    products, adds), whatever computes it: the larger of the bytes over
+    HBM and the products at the fastest exact rate (EXACT_PRODUCTS_PER_S:
+    a 31-bit product as 16 u8 x u8 MACs on the tensor cores); beside it
+    the operations bound on the CUDA cores (_kernel_bound's FMA and ALU
+    slots, the yardstick of the quotient kernels), as cuda_core_ops_ms."""
+    n_bytes, muls, adds = ops
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = muls / EXACT_PRODUCTS_PER_S * 1e3
+    slots = max(muls * _MUL_SLOTS, adds * _ADD_SLOTS) / 64
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_ms=bytes_ms, ops_ms=ops_ms,
+                cuda_core_ops_ms=slots / (sms * clock_hz) * 1e3)
 
 
 def open_kernels_full_width(dev, on: str, mqs) -> dict:
     """Phase 26: open_eval, open_reduce and fri_fold against their plain
     versions on the card, bit for bit, at the shapes of phase 10's shard
     0 (ShardingConfig(262144)): every height group of its four rounds
-    (plan_stats.open_groups), with random coefficient and LDE columns read
-    in place from wider matrices, random points (zeta and zeta * g where
-    the group has two), weights and y_alpha, each group's reduced openings
-    added into its height's codeword as device_open_rounds adds them; then
-    every FRI layer above the host tail from the shard's largest height,
-    each adding the codeword of the next height where there is one. Each
-    call's times (CUDA events): the kernel's launches on arguments packed
-    once (their output held to the plain version's too), the wrapper's
-    calls and the plain version's; its bound. Returns each kernel's totals
-    over the shard: ms, wrapper ms, plain ms, bound ms and what bounds it,
-    the largest absolute error."""
+    (plan_stats.open_groups) in one open_eval_groups call, as
+    device_open_rounds makes it, on random contiguous coefficient
+    matrices (the layout dcommit gives them) and again on column slices
+    of wider matrices (odd row strides), random points (zeta and zeta * g
+    where the group has two), and an all-(p - 1) column of 2^15 + 3 rows
+    at z = (p - 1, ...); random LDE columns read in place from wider
+    matrices; each group's reduced openings (random weights and
+    y_alpha) added into its height's codeword as device_open_rounds adds
+    them; then every FRI layer above the host tail from the shard's
+    largest height, its pair matrix folded into the next layer's, adding
+    the codeword of the next height where there is one. Each call's times
+    (CUDA events): the kernel's launches on arguments packed once (their
+    output held to the plain version's too), the wrapper's calls and the
+    plain version's; its bound and the CUDA cores' operations bound.
+    Returns each kernel's totals over the shard: ms, wrapper ms, plain ms,
+    bound ms and what bounds it, cuda_core_ops_ms, the largest absolute
+    error."""
     import torch
     from lurk_tpu_torch import plan_stats
-    from lurk_tpu_torch.field import babybear as bb
     from lurk_tpu_torch.field import ext as ext_t
+    from lurk_tpu_torch.field import babybear as bb
     from lurk_tpu_torch.stark import device_prover as dp
     from lurk_tpu_torch.stark import open_kernel as ok
     from lurk_tpu_torch.stark.fri import layer_shift
@@ -1611,32 +1640,71 @@ def open_kernels_full_width(dev, on: str, mqs) -> dict:
                                  f"{err})")
         return err
 
-    tot = {k: dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                   bytes_ms=0.0, max_abs_err=0, calls=0)
-           for k in OPEN_KERNELS}
     runs = []
     zeta = ext()
-    ro = {}
+    egroups, labels = [], []
     for rnd, log_h, w, n in groups:
-        h, big = 1 << log_h, 2 << log_h
-        label = f"{rnd} group of {h} rows x {w} columns, {n} point(s)"
         g = bb.two_adic_generator_s(log_h) if log_h else 1
-        zs = [zeta, ext_t.emul_s(zeta, (g, 0, 0, 0))][:n]
-        coeffs, lde = column(h, w), column(big, w)
-        weights = rng.integers(0, P_FIELD, (n, w, 4))
-        ya = rng.integers(0, P_FIELD, (n, 4))
-        # open_eval
-        want = ok.eval_plain(coeffs, zs)
-        err = held("open_eval", ok.open_eval(coeffs, zs), want, label)
-        args = ok.eval_args(coeffs, zs)
+        egroups.append((torch.randint(0, P_FIELD, (1 << log_h, w),
+                                      dtype=torch.int32, device=dev),
+                        [zeta, ext_t.emul_s(zeta, (g, 0, 0, 0))][:n]))
+        labels.append(f"{rnd} group of {1 << log_h} rows x {w} columns, "
+                      f"{n} point(s)")
+    # open_eval: every group at once, held group by group, on contiguous
+    # coefficient matrices as dcommit makes them, then on column slices of
+    # wider matrices (odd row strides: the kernel's 4-byte copies)
+    sliced = [(column(int(c.shape[0]), int(c.shape[1])), zs)
+              for c, zs in egroups]
+    for layout, gs in (("contiguous", egroups),
+                       ("odd-stride slices", sliced)):
+        want = ok.eval_groups_plain(gs)
+        got = ok.open_eval_groups(gs)
+        off, err = 0, 0
+        for (coeffs, zs), label in zip(gs, labels):
+            rows = len(zs) * int(coeffs.shape[1])
+            err = max(err, held("open_eval", got[off:off + rows],
+                                want[off:off + rows], f"{label} ({layout})"))
+            off += rows
+        args = ok.eval_args(gs)
         k_ms = _event_ms(lambda: ok.launch_eval(args), 5)
         _sync()
-        held("open_eval's timed launches", args["out"].tensor, want, label)
-        w_ms = _event_ms(lambda: ok.open_eval(coeffs, zs), 3)
-        p_ms = _event_ms(lambda: ok.eval_plain(coeffs, zs), 1)
-        runs.append(("open_eval", label, k_ms, w_ms, p_ms, err,
-                     _open_bounds("open_eval", h, w, n, False, sms, clock)))
-        # open_reduce, into the height's codeword where there is one
+        held("open_eval's timed launches", args["out"].tensor, want,
+             f"every group ({layout})")
+        w_ms = _event_ms(lambda: ok.open_eval_groups(gs), 3)
+        p_ms = _event_ms(lambda: ok.eval_groups_plain(gs), 1)
+        ops = [_open_ops("open_eval", int(c.shape[0]), int(c.shape[1]),
+                         len(zs), False) for c, zs in gs]
+        run = ("open_eval", f"{len(gs)} groups in one launch, {layout} "
+               f"({args['blocks']} blocks of {ok.EVAL_THREADS} threads, "
+               f"{ok.eval_resident_blocks(dev)} resident an SM)", k_ms,
+               w_ms, p_ms, err, tuple(map(sum, zip(*ops))))
+        if layout == "contiguous":
+            runs.append(run)
+        else:
+            b = _open_bound(run[-1], sms, clock)
+            odd_stride = dict(ms=k_ms, wrapper_ms=w_ms,
+                              share=b["bound_ms"] / k_ms)
+            print(f"open_eval == plain on shard 0's {run[1]}: kernel "
+                  f"{k_ms:.4f} ms (wrapper {w_ms:.4f} ms), plain "
+                  f"{p_ms:.4f} ms, bound {b['bound_ms']:.4f} ms = "
+                  f"{b['bound_ms'] / k_ms:.3f} of the kernel's time {on}")
+        del want, got, args
+    del sliced
+    worst = torch.full(((1 << 15) + 3, 3), P_FIELD - 1, dtype=torch.int32,
+                       device=dev)[:, 1:2]
+    wz = [(P_FIELD - 1,) * 4, (P_FIELD - 1, 0, 0, P_FIELD - 1)]
+    held("open_eval", ok.open_eval(worst, wz), ok.eval_plain(worst, wz),
+         "an all-(p - 1) column of 2^15 + 3 rows at z = (p - 1, ...)")
+    print(f"open_eval == plain on an all-(p - 1) column of 2^15 + 3 rows "
+          f"at z = (p - 1, ...) {on}")
+    del worst
+    # open_reduce, into the height's codeword where there is one
+    ro = {}
+    for (rnd, log_h, w, n), (_, zs), label in zip(groups, egroups, labels):
+        big = 2 << log_h
+        lde = column(big, w)
+        weights = rng.integers(0, P_FIELD, (n, w, 4))
+        ya = rng.integers(0, P_FIELD, (n, 4))
         base = ro.get(log_h + 1)
         copy = (lambda: None) if base is None else base.clone
         want = ok.reduce_plain(copy(), lde, zs, weights, ya)
@@ -1656,51 +1724,60 @@ def open_kernels_full_width(dev, on: str, mqs) -> dict:
         p_ms = _event_ms(lambda: ok.reduce_plain(base, lde, zs, weights,
                                                  ya), 1)
         runs.append(("open_reduce", label, k_ms, w_ms, p_ms, err,
-                     _open_bounds("open_reduce", big, w, n, base is not None,
-                                  sms, clock)))
+                     _open_ops("open_reduce", big, w, n, base is not None)))
         ro[log_h + 1] = want
-        del coeffs, lde, args, scratch
+        del lde, args, scratch
+    del egroups
     max_log = max(ro)
     floor = max(dp._fri_host_tail_log(), machine.config.log_blowup)
     for layer, log_n in enumerate(range(max_log, floor, -1)):
         label = f"FRI layer {layer} ({1 << log_n} rows)"
-        cw = column(1 << log_n, 4).contiguous()
+        pair = dp.pairs(column(1 << log_n, 4))
         add = ro.get(log_n - 1)
         beta, shift = ext(), layer_shift(max_log, layer)
-        want = ok.fold_plain(cw, beta, shift, add)
-        err = held("fri_fold", ok.fri_fold(cw, beta, shift, add), want,
+        want = ok.fold_plain(pair, beta, shift, add)
+        err = held("fri_fold", ok.fri_fold(pair, beta, shift, add), want,
                    label)
-        args = ok.fold_args(cw, beta, shift, add)
+        args = ok.fold_args(pair, beta, shift, add)
         k_ms = _event_ms(lambda: ok.launch_fold(args), 5)
         _sync()
         held("fri_fold's timed launches", args["out"].tensor, want, label)
-        w_ms = _event_ms(lambda: ok.fri_fold(cw, beta, shift, add), 3)
-        p_ms = _event_ms(lambda: ok.fold_plain(cw, beta, shift, add), 1)
+        w_ms = _event_ms(lambda: ok.fri_fold(pair, beta, shift, add), 3)
+        p_ms = _event_ms(lambda: ok.fold_plain(pair, beta, shift, add), 1)
         runs.append(("fri_fold", label, k_ms, w_ms, p_ms, err,
-                     _open_bounds("fri_fold", 1 << (log_n - 1), 4, 1,
-                                  add is not None, sms, clock)))
-    for name, label, k_ms, w_ms, p_ms, err, (n_bytes, b_ms, b_by) in runs:
+                     _open_ops("fri_fold", 1 << (log_n - 1), 4, 1,
+                               add is not None)))
+    tot = {k: dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, max_abs_err=0,
+                   calls=0, ops=(0, 0, 0), bound_ms=0.0, bytes_ms=0.0,
+                   ops_ms=0.0, cuda_core_ops_ms=0.0)
+           for k in OPEN_KERNELS}
+    for name, label, k_ms, w_ms, p_ms, err, ops in runs:
+        b = _open_bound(ops, sms, clock)
         t = tot[name]
         t["ms"] += k_ms
         t["wrapper_ms"] += w_ms
         t["plain_ms"] += p_ms
-        t["bound_ms"] += b_ms
-        t["bytes_ms"] += n_bytes / HBM_BYTES_PER_S * 1e3
         t["max_abs_err"] = max(t["max_abs_err"], err)
         t["calls"] += 1
+        for key in ("bound_ms", "bytes_ms", "ops_ms", "cuda_core_ops_ms"):
+            t[key] += b[key]
         print(f"{name} == plain on shard 0's {label}: kernel {k_ms:.4f} ms "
               f"(wrapper {w_ms:.4f} ms), plain {p_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}) = {b_ms / k_ms:.3f} of the kernel's "
-              f"time {on}")
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}) = "
+              f"{b['bound_ms'] / k_ms:.3f} of the kernel's time, CUDA "
+              f"cores' operations bound {b['cuda_core_ops_ms']:.4f} ms {on}")
     for name, t in tot.items():
-        t["bound_by"] = "bytes" if t.pop("bytes_ms") >= t["bound_ms"] \
+        t["bound_by"] = "bytes" if t.pop("bytes_ms") >= t.pop("ops_ms") \
             else "operations"
         print(f"{name} over shard 0's {t['calls']} calls ({sms} SMs at "
               f"{clock / 1e6:.0f} MHz): kernel {t['ms']:.4f} ms (wrapper "
               f"{t['wrapper_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
-              f"bound {t['bound_ms']:.4f} ms = {t['bound_ms'] / t['ms']:.3f} "
-              f"of the kernel's time, max abs err {t['max_abs_err']} {on}")
-        del t["calls"]
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) = "
+              f"{t['bound_ms'] / t['ms']:.3f} of the kernel's time, CUDA "
+              f"cores' operations bound {t['cuda_core_ops_ms']:.4f} ms, max "
+              f"abs err {t['max_abs_err']} {on}")
+        del t["calls"], t["ops"]
+    tot["open_eval"]["odd_stride"] = odd_stride
     del ro
     torch.cuda.empty_cache()
     return tot

@@ -12,12 +12,13 @@ constraint_quotient kernel. Totals over the chips on the device path:
 padded main cells, perm cells, the launches of the kernels of
 stark/quotient_kernel.py and stark/open_kernel.py per prove on a card
 (constraint_quotient: one per chip, over all its LDE rows;
-logup_perm_phi: one per chip with interactions; open_eval and
-open_reduce: one per height group of each round; fri_fold: one per FRI
-layer above the host tail), and beside them the eager torch launches the plain
-constraint VM dispatches per prove (two per instruction and chunk: the
-operation and its reduction), which is what a card ran before the
-kernels. These are counts, not times.
+logup_perm_phi: one per chip with interactions; open_eval: one per
+shard, for every height group of its rounds; open_reduce: one per height
+group of each round; fri_fold: one per FRI layer above the host tail),
+and beside them the eager torch launches the plain constraint VM
+dispatches per prove (two per instruction and chunk: the operation and
+its reduction), which is what a card ran before the kernels. These are
+counts, not times.
 """
 
 from __future__ import annotations
@@ -72,8 +73,9 @@ def kernel_launches(machine, queries, shard_config) -> dict:
     stark/open_kernel.py that a prove of `queries` at `shard_config` makes
     on a card: one constraint_quotient per chip on the device path of
     every shard, one logup_perm_phi per such chip with interactions; one
-    open_eval and one open_reduce per height group of every round of
-    every shard; one fri_fold per FRI layer above the host tail
+    open_eval per shard (all of its height groups at once); one
+    open_reduce per height group of every round of every shard; one
+    fri_fold per FRI layer above the host tail
     (device_prover._fri_host_tail_log) of every shard."""
     from .lair.chips import chip_included
     from .lair.execute import Shard
@@ -88,7 +90,8 @@ def kernel_launches(machine, queries, shard_config) -> dict:
                 out["logup_perm_phi"] += \
                     bool(machine.builder_for(chip).interactions)
     groups = open_groups(machine, queries, shard_config)
-    out["open_eval"] = out["open_reduce"] = sum(map(len, groups))
+    out["open_eval"] = sum(1 for g in groups if g)
+    out["open_reduce"] = sum(map(len, groups))
     floor = max(dp._fri_host_tail_log(), machine.config.log_blowup)
     out["fri_fold"] = sum(max(0, max(lh for _, lh, _, _ in g)
                               + dp.LOG_BLOWUP - floor) for g in groups)

@@ -1098,6 +1098,18 @@ def _fold(cw, beta_dev, inv_2x):
     return ((s + bd) % P).to(I32)
 
 
+def pairs(cw):
+    """The (n/2, 8) pair matrix of a (n, 4) codeword: row i holds f(x_i)
+    and f(-x_i) (a FRI layer's committed leaves)."""
+    half = cw.shape[0] // 2
+    return torch.cat([cw[:half], cw[half:]], dim=1)
+
+
+def unpair(pair):
+    """The (n, 4) codeword of a (n/2, 8) pair matrix."""
+    return torch.cat([pair[:, :4], pair[:, 4:]], dim=0)
+
+
 @lru_cache(maxsize=None)
 def _inv_2x_dev(log_n: int, shift: int, device: torch.device):
     from .fri import _inv_x_half
@@ -1131,26 +1143,24 @@ def device_fri_prove(codewords: Dict[int, object], config: FriConfig,
     log_n = max_log
     layer = 0
     on_host = isinstance(current, np.ndarray)
+    paired = False                  # a device codeword as its pair matrix
 
     while log_n > config.log_blowup:
         if not on_host and log_n <= tail_log:
-            # one transfer: live codeword + all remaining input codewords
-            pend = [(None, current)] + \
-                [(k, v) for k, v in codewords.items()
-                 if k < log_n and not isinstance(v, np.ndarray)]
-            joined = bb.to_numpy(torch.cat([v for _, v in pend], dim=0)) \
-                .astype(np.uint64)
-            off = 0
+            # one transfer: live codeword (unpaired) + all remaining input
+            # codewords
+            live = [current[:, :4], current[:, 4:]] if paired else [current]
+            pend = [(k, v) for k, v in codewords.items()
+                    if k < log_n and not isinstance(v, np.ndarray)]
+            joined = bb.to_numpy(torch.cat(
+                live + [v for _, v in pend], dim=0)).astype(np.uint64)
+            off = 1 << log_n
+            current = joined[:off]
             for k, v in pend:
                 n_rows = int(v.shape[0])
-                block = joined[off:off + n_rows]
+                codewords[k] = joined[off:off + n_rows]
                 off += n_rows
-                if k is None:
-                    current = block
-                else:
-                    codewords[k] = block
-            on_host = True
-        half = 1 << (log_n - 1)
+            on_host, paired = True, False
         if on_host:
             tree = host_merkle.commit([_pair_matrix(current)])
             layer_trees.append(tree)
@@ -1159,14 +1169,17 @@ def device_fri_prove(codewords: Dict[int, object], config: FriConfig,
             current = fold_codeword(current, beta, log_n,
                                     layer_shift(max_log, layer))
         else:
-            pair = torch.cat([current[:half], current[half:]], dim=1)
+            # the first device layer makes its pairs; fri_fold writes every
+            # later layer's
+            pair = current if paired else pairs(current)
             tree = dtree_commit([pair])
             layer_trees.append(tree)
             challenger.observe_many(tree.root)
             beta = challenger.sample_ext()
             # the fold adds the input codeword of the next height
-            current = fri_fold(current, beta, layer_shift(max_log, layer),
+            current = fri_fold(pair, beta, layer_shift(max_log, layer),
                                codewords.get(log_n - 1))
+            paired = True
         log_n -= 1
         layer += 1
         if on_host and log_n in codewords:
@@ -1175,7 +1188,7 @@ def device_fri_prove(codewords: Dict[int, object], config: FriConfig,
                 add = bb.to_numpy(add)
             current = E_np.eadd(current, np.asarray(add, np.uint64))
     final_rows = current if isinstance(current, np.ndarray) \
-        else bb.to_numpy(current)
+        else bb.to_numpy(unpair(current) if paired else current)
     final = tuple(int(x) for x in final_rows[0])
     assert all(tuple(int(x) for x in row) == final for row in final_rows), \
         "FRI final polynomial is not constant - inputs exceeded degree bound"
@@ -1244,27 +1257,26 @@ def device_open_rounds(rounds: List[DRound],
     (exact mod-p sums are order-insensitive)."""
     from ..field import ext_np as E_np
     from . import merkle as host_merkle
-    from .open_kernel import open_eval, open_reduce
+    from .open_kernel import open_eval_groups, open_reduce
 
     # opened values: evaluate each group's coefficient concat at the union
-    # of its matrices' points (one open_eval per group), then scatter back
-    # per matrix. All (group, point) evaluations ride ONE device->host
-    # transfer.
+    # of its matrices' points, every group of every round in one
+    # open_eval_groups call (one launch), then scatter back per matrix. All
+    # (group, point) evaluations ride ONE device->host transfer.
     t0 = _time.perf_counter()
-    pending = []                           # (rnd_i, group_i, z, dev (w,4))
+    groups, pending = [], []               # (coeffs, zs); (ri, gi, z, w)
     for ri, (rnd, rnd_points) in enumerate(zip(rounds, points)):
         for gi, ((log_h, idxs), gcoeffs) in enumerate(
                 zip(rnd.groups, rnd.group_coeffs)):
             zs = _group_points(rnd, rnd_points, idxs)
-            vals = open_eval(gcoeffs, zs)          # (points, w, 4)
-            pending += [(ri, gi, z, vals[k]) for k, z in enumerate(zs)]
-    if pending:
-        joined = bb.to_numpy(torch.cat([d for *_, d in pending], dim=0))
+            groups.append((gcoeffs, zs))
+            pending += [(ri, gi, z, int(gcoeffs.shape[1])) for z in zs]
+    if groups:
+        joined = bb.to_numpy(open_eval_groups(groups))
     t0 = _tlog("    opened-values eval+transfer", t0)
     evals: Dict[tuple, list] = {}
     off = 0
-    for ri, gi, z, dev in pending:
-        w = int(dev.shape[0])
+    for ri, gi, z, w in pending:
         evals[(ri, gi, z)] = [tuple(row)
                               for row in joined[off:off + w].tolist()]
         off += w

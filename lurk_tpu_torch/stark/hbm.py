@@ -197,17 +197,20 @@ def _quotient_transient(c: ChipShape, cuda: bool) -> int:
 
 def _open_transient(groups: List[Tuple[int, int]], cuda: bool) -> int:
     """device_open_rounds over the (height, width) groups of a shard's
-    rounds. On CUDA (the open kernels of stark/open_kernel.py): a group's
-    opened values, their 64-bit accumulators and its staged weights (at
-    most two points: 96 B a column), and the reduced codewords, one (2h,
-    4) int32 per height, all alive until FRI. On the CPU: one _open_rows
-    block of a group's coefficients or LDE and its products in int64, and
-    the group's reduced codewords."""
+    rounds. On CUDA (the open kernels of stark/open_kernel.py): open_eval's
+    one launch for every group, so every group's opened values and their
+    64-bit accumulators (at most two points: 96 B a column) and its packed
+    tables (a power table and column-tile records, within 2 KB a group)
+    alive together; a group's staged open_reduce weights (32 B a column);
+    and the reduced codewords, one (2h, 4) int32 per height, all alive
+    until FRI. On the CPU: one _open_rows block of a group's coefficients
+    or LDE and its products in int64, and the group's reduced codewords."""
     from .device_prover import LDE_CHUNK_CELLS
     if not groups:
         return 0
     if cuda:
-        return max(96 * w for _, w in groups) + \
+        return sum(96 * w + 2048 for _, w in groups) + \
+            max(32 * w for _, w in groups) + \
             32 * sum({h for h, _ in groups})
     return max(24 * min(2 * h * w, LDE_CHUNK_CELLS) + 256 * h
                for h, w in groups)

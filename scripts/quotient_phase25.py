@@ -4,11 +4,12 @@ chips of Lurk fib(100000)'s shard 0 at ShardingConfig(262144); then, where
 the tree's chip_smoke.py has phase 26, open_eval, open_reduce and
 fri_fold at the same shard's shapes.
 
-    python3 scripts/quotient_phase25.py [TREE]
+    python3 scripts/quotient_phase25.py [TREE] [--open]
 
 TREE (default: this checkout) is the root of the checkout whose
 chip_smoke.py and lurk_tpu_torch to run, so that one call on the card can
-time two trees in turns (parent, change, change, parent). Needs a card;
+time two trees in turns (parent, change, change, parent). With --open,
+phase 26 alone. Needs a card;
 prints the card's name and power limit and each chip's or group's line as
 chip_smoke.py does, then the totals as JSON.
 """
@@ -20,7 +21,8 @@ from pathlib import Path
 
 
 def main() -> int:
-    root = Path(sys.argv[1] if len(sys.argv) > 1 else
+    args = [a for a in sys.argv[1:] if a != "--open"]
+    root = Path(args[0] if args else
                 Path(__file__).resolve().parents[1]).resolve()
     sys.path.insert(0, str(root))
     os.chdir(root)
@@ -40,8 +42,9 @@ def main() -> int:
     machine = new_machine(toplevel, FriConfig())
     _, q = evaluate(toplevel, zstore, chip_smoke.FIB100K_CODE)
     mqs = (machine, None, None, q, ShardingConfig(262144))
-    tot = chip_smoke.quotient_kernels_full_width(torch.device("cuda"),
-                                                 f"[{gpu}]", mqs)
+    tot = {} if "--open" in sys.argv else \
+        chip_smoke.quotient_kernels_full_width(torch.device("cuda"),
+                                               f"[{gpu}]", mqs)
     if hasattr(chip_smoke, "open_kernels_full_width"):
         tot.update(chip_smoke.open_kernels_full_width(torch.device("cuda"),
                                                       f"[{gpu}]", mqs))

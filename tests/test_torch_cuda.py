@@ -6,7 +6,9 @@ perm-trace kernels (stark/quotient_kernel.py) against their plain
 versions on every plan chip of golden.LURK_PROGRAM, direct and compiled,
 and the Lurk golden proof through them; the PCS-opening and FRI-fold
 kernels (stark/open_kernel.py) against their plain versions at heights
-2^1 to 2^19 and widths 1 to 300, from three threads at once, in
+2^1 to 2^19 and widths 1 to 300, open_eval over every height group of
+fib(100000)'s shard 0 in one launch (and an all-(p - 1) column of 2^15 +
+3 rows), from three threads at once in a fresh process, in
 device_open_rounds (a repeated point) and in the Lurk golden proof. Every
 test skips without a card.
 
@@ -400,8 +402,10 @@ def test_open_reduce_kernel_matches_plain(cuda, log_big, w):
             assert torch.equal(got, want), (log_big, w, len(zs))
 
 
-@pytest.mark.parametrize("log_n", [1, 12, 19])
+@pytest.mark.parametrize("log_n", [2, 12, 19])
 def test_fri_fold_kernel_matches_plain(cuda, log_n):
+    """A layer's pair matrix folded into the next layer's, with and
+    without the next height's codeword added."""
     from lurk_tpu_torch.stark import open_kernel as ok
     from lurk_tpu_torch.stark.fri import layer_shift
     rng = np.random.default_rng(50 + log_n)
@@ -409,16 +413,72 @@ def test_fri_fold_kernel_matches_plain(cuda, log_n):
     cw = torch.from_numpy(rng.integers(0, bb.P, (n, 4)).astype(np.int32)) \
         .to(cuda)
     cw[0] = torch.tensor([0, 1, bb.P - 1, 1 << 30])
+    pair = dp.pairs(cw)
     add = torch.from_numpy(rng.integers(0, bb.P, (n // 2, 4))
                            .astype(np.int32)).to(cuda)
     for extra in (None, add):
         beta, shift = _ext(rng), layer_shift(log_n + 2, 2)
         before = ok.fri_fold.launches
-        got = ok.fri_fold(cw, beta, shift, extra)
+        got = ok.fri_fold(pair, beta, shift, extra)
         assert ok.fri_fold.launches == before + 1
-        want = ok.fold_plain(cw, beta, shift, extra)
+        want = ok.fold_plain(pair, beta, shift, extra)
         torch.cuda.synchronize()
-        assert got.dtype == torch.int32 and torch.equal(got, want), log_n
+        assert got.dtype == torch.int32 and tuple(got.shape) == (n // 4, 8)
+        assert torch.equal(got, want), log_n
+
+
+@functools.lru_cache(maxsize=1)
+def _shard0_groups():
+    """plan_stats.open_groups of direct fib(100000)'s shard 0 at
+    ShardingConfig(262144): (round, log2 height, width, points)."""
+    from lurk_tpu_torch import plan_stats
+    from lurk_tpu_torch.core.eval_api import evaluate
+    from lurk_tpu_torch.core.eval_direct import build_lurk_toplevel
+    from lurk_tpu_torch.core.stark_machine import new_machine
+    from lurk_tpu_torch.lair.execute import ShardingConfig
+    toplevel, zstore, _ = build_lurk_toplevel()
+    _, q = evaluate(toplevel, zstore, (
+        "(letrec ((fib (lambda (n) (if (<= n 1) n (+ (fib (- n 1)) "
+        "(fib (- (- n 1) 1))))))) (fib 100000))"))
+    machine = new_machine(toplevel, FriConfig())
+    return plan_stats.open_groups(machine, q, ShardingConfig(262144))[0]
+
+
+def test_grouped_open_eval_matches_plain_at_shard0_shapes(cuda):
+    """open_eval_groups over every height group of fib(100000)'s shard 0
+    (25 groups, 2^0 to 2^18 rows, 6 to 663 columns, slices of odd-stride
+    matrices) and an all-(p - 1) column of 2^15 + 3 rows at z = (p - 1,
+    ...): one launch, each group bit-equal to the plain version, and the
+    same arguments launched again give the same values."""
+    from lurk_tpu_torch.field import ext as ext_t
+    from lurk_tpu_torch.stark import open_kernel as ok
+    groups = _shard0_groups()
+    assert len(groups) == 25
+    rng = np.random.default_rng(60)
+    zeta = _ext(rng)
+    egroups = []
+    for _, log_h, w, n in groups:
+        coeffs, = _odd_stride_slices(rng, 1 << log_h, [w], cuda)
+        g = bb.two_adic_generator_s(log_h) if log_h else 1
+        egroups.append((coeffs, [zeta, ext_t.emul_s(
+            zeta, (g, 0, 0, 0))][:n]))
+    worst = torch.full(((1 << 15) + 3, 3), bb.P - 1, dtype=torch.int32,
+                       device=cuda)[:, 1:2]
+    egroups.append((worst, [(bb.P - 1,) * 4, (bb.P - 1, 0, 0, bb.P - 1)]))
+    before = ok.open_eval.launches
+    args = ok.eval_args(egroups)
+    got = ok.launch_eval(args).clone()
+    again = ok.launch_eval(args)
+    assert ok.open_eval.launches == before + 2
+    want = ok.eval_groups_plain(egroups)
+    torch.cuda.synchronize()
+    off = 0
+    for coeffs, zs in egroups:
+        rows = len(zs) * int(coeffs.shape[1])
+        assert torch.equal(got[off:off + rows], want[off:off + rows]), \
+            (tuple(coeffs.shape), len(zs))
+        off += rows
+    assert off == len(want) and torch.equal(again, want)
 
 
 def test_open_kernels_reject_layouts_they_do_not_take(cuda):
@@ -437,57 +497,88 @@ def test_open_kernels_reject_layouts_they_do_not_take(cuda):
     with pytest.raises(ValueError):               # a codeword on the CPU
         ok.open_reduce(torch.zeros((64, 4), dtype=torch.int32), coeffs, z,
                        np.zeros((1, 5, 4)), np.zeros((1, 4)))
-    cw = torch.zeros((64, 4), dtype=torch.int32, device=cuda)
+    pair = torch.zeros((64, 8), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
-        ok.fri_fold(cw[::2], z[0], 31)
+        ok.fri_fold(pair[::2], z[0], 31)
     with pytest.raises(ValueError):
-        ok.fri_fold(cw, z[0], 31, cw)
+        ok.fri_fold(pair[:, :4].contiguous(), z[0], 31)
+    with pytest.raises(ValueError):
+        ok.fri_fold(pair, z[0], 31, pair)
+    with pytest.raises(ValueError):             # groups on two devices
+        ok.open_eval_groups([(coeffs, z), (coeffs.cpu(), z)])
+
+
+# Run in a fresh process, so that no launch before it has set open_eval's
+# shared-memory attribute: three host threads launch each open kernel at
+# once on one card (open_eval on two groups at a time), as
+# parallel/shard_prover.py's threads do on a mesh whose slots repeat a
+# device. Every output must equal the plain version and every launch be
+# counted.
+_OPEN_THREADS_CHILD = """
+import sys, threading
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+from lurk_tpu_torch.field import babybear as bb
+from lurk_tpu_torch.stark import device_prover as dp
+from lurk_tpu_torch.stark import open_kernel as ok
+cuda = torch.device("cuda")
+rng = np.random.default_rng(7)
+
+def rand(*shape):
+    return torch.from_numpy(rng.integers(0, bb.P, shape).astype(np.int32)
+                            ).to(cuda)
+
+def ext():
+    return tuple(int(v) for v in rng.integers(0, bb.P, 4))
+
+cases = []
+for w in (3, 40, 260):
+    coeffs, small = rand(1 << 10, w + 3)[:, 1:1 + w], rand(64, w)
+    lde = rand(1 << 11, w)
+    zs = [ext(), ext()]
+    cases.append(([(coeffs, zs), (small, zs[:1])], lde, zs,
+                  rng.integers(0, bb.P, (2, w, 4)),
+                  rng.integers(0, bb.P, (2, 4)), dp.pairs(rand(1 << 11, 4)),
+                  ext()))
+errors, start = [], threading.Barrier(len(cases))
+
+def work(case):
+    groups, lde, zs, weights, ya, pair, beta = case
+    try:
+        start.wait()
+        outs = [(ok.open_eval_groups(groups),
+                 ok.open_reduce(None, lde, zs, weights, ya),
+                 ok.fri_fold(pair, beta, 31)) for _ in range(50)]
+        torch.cuda.synchronize()
+        want = (ok.eval_groups_plain(groups),
+                ok.reduce_plain(None, lde, zs, weights, ya),
+                ok.fold_plain(pair, beta, 31))
+        assert all(torch.equal(g, w) for o in outs for g, w in zip(o, want))
+    except Exception as e:
+        errors.append(repr(e))
+
+threads = [threading.Thread(target=work, args=(c,)) for c in cases]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+assert not errors, errors
+assert [f.launches for f in (ok.open_eval, ok.open_reduce, ok.fri_fold)] \\
+    == [150] * 3
+print("ok")
+"""
 
 
 def test_open_kernels_from_threads_at_once(cuda):
-    """Three host threads launch each open kernel at once on one card, as
-    parallel/shard_prover.py's threads do on a mesh whose slots repeat a
-    device: every output equals the plain version and every launch is
-    counted."""
-    import threading
-    from lurk_tpu_torch.stark import open_kernel as ok
-    rng = np.random.default_rng(7)
-    cases = []
-    for w in (3, 40, 260):
-        coeffs, lde = _odd_stride_slices(rng, 1 << 10, [w, w], cuda)
-        zs = [_ext(rng), _ext(rng)]
-        weights = rng.integers(0, bb.P, (2, w, 4))
-        ya = rng.integers(0, bb.P, (2, 4))
-        cw = torch.from_numpy(rng.integers(0, bb.P, (1 << 11, 4))
-                              .astype(np.int32)).to(cuda)
-        cases.append((coeffs, lde, zs, weights, ya, cw, _ext(rng)))
-    before = [f.launches for f in (ok.open_eval, ok.open_reduce, ok.fri_fold)]
-    errors, start = [], threading.Barrier(len(cases))
-
-    def work(case):
-        coeffs, lde, zs, weights, ya, cw, beta = case
-        try:
-            start.wait()
-            outs = [(ok.open_eval(coeffs, zs),
-                     ok.open_reduce(None, lde, zs, weights, ya),
-                     ok.fri_fold(cw, beta, 31)) for _ in range(50)]
-            torch.cuda.synchronize()
-            want = (ok.eval_plain(coeffs, zs),
-                    ok.reduce_plain(None, lde, zs, weights, ya),
-                    ok.fold_plain(cw, beta, 31))
-            assert all(torch.equal(g, w) for o in outs
-                       for g, w in zip(o, want))
-        except Exception as e:                       # reported below
-            errors.append(repr(e))
-
-    threads = [threading.Thread(target=work, args=(c,)) for c in cases]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    assert not errors, errors
-    after = [f.launches for f in (ok.open_eval, ok.open_reduce, ok.fri_fold)]
-    assert [a - b for a, b in zip(after, before)] == [150] * 3
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, "-c", _OPEN_THREADS_CHILD,
+                          str(root)], capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0 and run.stdout.split()[-1:] == ["ok"], \
+        run.stdout[-2000:] + run.stderr[-4000:]
 
 
 def test_open_rounds_with_a_repeated_point(cuda):
@@ -522,7 +613,8 @@ def test_open_rounds_with_a_repeated_point(cuda):
                 [rnd], points, config, ch)))
     assert proofs[0] == proofs[1]
     after = [f.launches for f in (ok.open_eval, ok.open_reduce, ok.fri_fold)]
-    assert [a - b for a, b in zip(after, counts)] == [3, 3, 17]
+    # one open_eval for every group of the round, one open_reduce a group
+    assert [a - b for a, b in zip(after, counts)] == [1, 3, 17]
 
 
 def test_lurk_golden_through_the_open_kernels(cuda, monkeypatch):

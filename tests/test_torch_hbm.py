@@ -227,12 +227,15 @@ def test_cuda_models_the_quotient_kernels_buffers(monkeypatch):
 
 
 def test_cuda_models_the_open_kernels_buffers():
-    """On CUDA the open phase holds the open kernels' small buffers and the
-    int32 reduced codewords, one (2h, 4) a height, not the plain versions'
-    int64 row blocks, which the CPU's model keeps."""
+    """On CUDA the open phase holds the open kernels' small buffers (every
+    group's opened values, accumulators and tables at once, for open_eval's
+    one launch; a group's staged weights) and the int32 reduced codewords,
+    one (2h, 4) a height, not the plain versions' int64 row blocks, which
+    the CPU's model keeps."""
     groups = [(1 << 18, 520), (1 << 17, 218), (1 << 18, 660), (16, 120)]
     cuda = hbm._open_transient(groups, cuda=True)
-    assert cuda == 96 * 660 + 32 * ((1 << 18) + (1 << 17) + 16)
+    assert cuda == 96 * (520 + 218 + 660 + 120) + 4 * 2048 + 32 * 660 + \
+        32 * ((1 << 18) + (1 << 17) + 16)
     assert hbm._open_transient(groups, cuda=False) > 10 * cuda
     assert hbm._open_transient([], cuda=True) == 0
     shards = _shards(1 << 18, 4)

@@ -74,7 +74,12 @@ def _machine():
     return machine, len(q.expect_public_values())
 
 
+@functools.lru_cache(maxsize=None)
 def _plan_chips():
+    """(name, builder, plan) of every chip with an affine plan, and the
+    public-value count: built once per process and shared by every case
+    here and in test_torch_quotient_lurk_tpu.py and
+    test_torch_perm_lurk_tpu.py (88 cases)."""
     machine, n_pv = _machine()
     out = []
     for chip in machine.chips:
