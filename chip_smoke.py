@@ -1591,27 +1591,29 @@ def _open_bound(ops: tuple, sms: int, clock_hz: float) -> dict:
                 cuda_core_ops_ms=slots / (sms * clock_hz) * 1e3)
 
 
-def open_kernels_full_width(dev, on: str, mqs) -> dict:
+def open_kernels_full_width(dev, on: str, mqs, odd_stride: bool = False
+                            ) -> dict:
     """Phase 26: open_eval, open_reduce and fri_fold against their plain
     versions on the card, bit for bit, at the shapes of phase 10's shard
     0 (ShardingConfig(262144)): every height group of its four rounds
     (plan_stats.open_groups) in one open_eval_groups call, as
     device_open_rounds makes it, on random contiguous coefficient
-    matrices (the layout dcommit gives them) and again on column slices
-    of wider matrices (odd row strides), random points (zeta and zeta * g
-    where the group has two), and an all-(p - 1) column of 2^15 + 3 rows
-    at z = (p - 1, ...); random LDE columns read in place from wider
-    matrices; each group's reduced openings (random weights and
-    y_alpha) added into its height's codeword as device_open_rounds adds
-    them; then every FRI layer above the host tail from the shard's
-    largest height, its pair matrix folded into the next layer's, adding
-    the codeword of the next height where there is one. Each call's times
+    matrices (the layout dcommit gives them; with `odd_stride`, also
+    held and timed on column slices of wider matrices, printed only),
+    random points (zeta and zeta * g where the group has two), and an
+    all-(p - 1) column of 2^15 + 3 rows at z = (p - 1, ...); random LDE
+    columns read in place from wider matrices; each group's reduced
+    openings (random weights and y_alpha) added into its height's
+    codeword as device_open_rounds adds them; then every FRI layer above
+    the host tail from the shard's largest height, its pair matrix folded
+    into the next layer's, adding the codeword of the next height where
+    there is one. Each call's times
     (CUDA events): the kernel's launches on arguments packed once (their
     output held to the plain version's too), the wrapper's calls and the
-    plain version's; its bound and the CUDA cores' operations bound.
-    Returns each kernel's totals over the shard: ms, wrapper ms, plain ms,
-    bound ms and what bounds it, cuda_core_ops_ms, the largest absolute
-    error."""
+    plain version's; its bound and, on the printed lines only, the CUDA
+    cores' operations bound. Returns each kernel's totals over the shard:
+    ms, wrapper ms, plain ms, bound ms and what bounds it, the largest
+    absolute error."""
     import torch
     from lurk_tpu_torch import plan_stats
     from lurk_tpu_torch.field import ext as ext_t
@@ -1651,12 +1653,14 @@ def open_kernels_full_width(dev, on: str, mqs) -> dict:
         labels.append(f"{rnd} group of {1 << log_h} rows x {w} columns, "
                       f"{n} point(s)")
     # open_eval: every group at once, held group by group, on contiguous
-    # coefficient matrices as dcommit makes them, then on column slices of
-    # wider matrices (odd row strides: the kernel's 4-byte copies)
-    sliced = [(column(int(c.shape[0]), int(c.shape[1])), zs)
-              for c, zs in egroups]
-    for layout, gs in (("contiguous", egroups),
-                       ("odd-stride slices", sliced)):
+    # coefficient matrices as dcommit makes them (with odd_stride, then on
+    # column slices of wider matrices: the kernel's 4-byte copies)
+    layouts = [("contiguous", egroups)]
+    if odd_stride:
+        layouts.append(("odd-stride slices",
+                        [(column(int(c.shape[0]), int(c.shape[1])), zs)
+                         for c, zs in egroups]))
+    for layout, gs in layouts:
         want = ok.eval_groups_plain(gs)
         got = ok.open_eval_groups(gs)
         off, err = 0, 0
@@ -1675,21 +1679,18 @@ def open_kernels_full_width(dev, on: str, mqs) -> dict:
         ops = [_open_ops("open_eval", int(c.shape[0]), int(c.shape[1]),
                          len(zs), False) for c, zs in gs]
         run = ("open_eval", f"{len(gs)} groups in one launch, {layout} "
-               f"({args['blocks']} blocks of {ok.EVAL_THREADS} threads, "
-               f"{ok.eval_resident_blocks(dev)} resident an SM)", k_ms,
-               w_ms, p_ms, err, tuple(map(sum, zip(*ops))))
+               f"({args['blocks']} blocks of {ok.EVAL_THREADS} threads)",
+               k_ms, w_ms, p_ms, err, tuple(map(sum, zip(*ops))))
         if layout == "contiguous":
             runs.append(run)
         else:
             b = _open_bound(run[-1], sms, clock)
-            odd_stride = dict(ms=k_ms, wrapper_ms=w_ms,
-                              share=b["bound_ms"] / k_ms)
             print(f"open_eval == plain on shard 0's {run[1]}: kernel "
                   f"{k_ms:.4f} ms (wrapper {w_ms:.4f} ms), plain "
                   f"{p_ms:.4f} ms, bound {b['bound_ms']:.4f} ms = "
                   f"{b['bound_ms'] / k_ms:.3f} of the kernel's time {on}")
         del want, got, args
-    del sliced
+    del layouts
     worst = torch.full(((1 << 15) + 3, 3), P_FIELD - 1, dtype=torch.int32,
                        device=dev)[:, 1:2]
     wz = [(P_FIELD - 1,) * 4, (P_FIELD - 1, 0, 0, P_FIELD - 1)]
@@ -1748,9 +1749,9 @@ def open_kernels_full_width(dev, on: str, mqs) -> dict:
                      _open_ops("fri_fold", 1 << (log_n - 1), 4, 1,
                                add is not None)))
     tot = {k: dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, max_abs_err=0,
-                   calls=0, ops=(0, 0, 0), bound_ms=0.0, bytes_ms=0.0,
-                   ops_ms=0.0, cuda_core_ops_ms=0.0)
-           for k in OPEN_KERNELS}
+                   bound_ms=0.0) for k in OPEN_KERNELS}
+    extra = {k: dict(calls=0, bytes_ms=0.0, ops_ms=0.0, cuda_core_ops_ms=0.0)
+             for k in OPEN_KERNELS}
     for name, label, k_ms, w_ms, p_ms, err, ops in runs:
         b = _open_bound(ops, sms, clock)
         t = tot[name]
@@ -1758,26 +1759,27 @@ def open_kernels_full_width(dev, on: str, mqs) -> dict:
         t["wrapper_ms"] += w_ms
         t["plain_ms"] += p_ms
         t["max_abs_err"] = max(t["max_abs_err"], err)
-        t["calls"] += 1
-        for key in ("bound_ms", "bytes_ms", "ops_ms", "cuda_core_ops_ms"):
-            t[key] += b[key]
+        t["bound_ms"] += b["bound_ms"]
+        x = extra[name]
+        x["calls"] += 1
+        for key in ("bytes_ms", "ops_ms", "cuda_core_ops_ms"):
+            x[key] += b[key]
         print(f"{name} == plain on shard 0's {label}: kernel {k_ms:.4f} ms "
               f"(wrapper {w_ms:.4f} ms), plain {p_ms:.4f} ms, bound "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']}) = "
               f"{b['bound_ms'] / k_ms:.3f} of the kernel's time, CUDA "
               f"cores' operations bound {b['cuda_core_ops_ms']:.4f} ms {on}")
     for name, t in tot.items():
-        t["bound_by"] = "bytes" if t.pop("bytes_ms") >= t.pop("ops_ms") \
+        x = extra[name]
+        t["bound_by"] = "bytes" if x["bytes_ms"] >= x["ops_ms"] \
             else "operations"
-        print(f"{name} over shard 0's {t['calls']} calls ({sms} SMs at "
+        print(f"{name} over shard 0's {x['calls']} calls ({sms} SMs at "
               f"{clock / 1e6:.0f} MHz): kernel {t['ms']:.4f} ms (wrapper "
               f"{t['wrapper_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) = "
               f"{t['bound_ms'] / t['ms']:.3f} of the kernel's time, CUDA "
-              f"cores' operations bound {t['cuda_core_ops_ms']:.4f} ms, max "
+              f"cores' operations bound {x['cuda_core_ops_ms']:.4f} ms, max "
               f"abs err {t['max_abs_err']} {on}")
-        del t["calls"], t["ops"]
-    tot["open_eval"]["odd_stride"] = odd_stride
     del ro
     torch.cuda.empty_cache()
     return tot

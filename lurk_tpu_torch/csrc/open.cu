@@ -597,18 +597,6 @@ long long lurk_open_eval_args_size() { return sizeof(EvalArgs); }
 long long lurk_open_reduce_args_size() { return sizeof(ReduceArgs); }
 long long lurk_fri_fold_args_size() { return sizeof(FoldArgs); }
 
-// open_eval blocks resident on one SM of `device`, or -1 on an error.
-int lurk_open_eval_occupancy(int device) {
-  int blocks = -1;
-  const int err = on_device(device, [&]() -> int {
-    cudaError_t e = configure_eval();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, open_eval_kernel, EVAL_THREADS, EVAL_SMEM));
-  });
-  return err == 0 ? blocks : -1;
-}
-
 // The opened values of every group of args (an EvalArgs, passed as void*:
 // a parameter of a type in the unnamed namespace would take the
 // function's external linkage away) at its points, written to args->out,

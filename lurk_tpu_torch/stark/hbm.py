@@ -200,7 +200,8 @@ def _open_transient(groups: List[Tuple[int, int]], cuda: bool) -> int:
     rounds. On CUDA (the open kernels of stark/open_kernel.py): open_eval's
     one launch for every group, so every group's opened values and their
     64-bit accumulators (at most two points: 96 B a column) and its packed
-    tables (a power table and column-tile records, within 2 KB a group)
+    tables (z^(2^j) for each point: 1,024 B a group; a record and a
+    counter a column tile: 92 B; the block -> tile map: 4 B a block)
     alive together; a group's staged open_reduce weights (32 B a column);
     and the reduced codewords, one (2h, 4) int32 per height, all alive
     until FRI. On the CPU: one _open_rows block of a group's coefficients
@@ -209,7 +210,10 @@ def _open_transient(groups: List[Tuple[int, int]], cuda: bool) -> int:
     if not groups:
         return 0
     if cuda:
-        return sum(96 * w + 2048 for _, w in groups) + \
+        from .open_kernel import ITEM_ROWS, column_tiles
+        tables = sum(1024 + len(column_tiles(w))
+                     * (92 + 4 * -(-h // ITEM_ROWS)) for h, w in groups)
+        return sum(96 * w for _, w in groups) + tables + \
             max(32 * w for _, w in groups) + \
             32 * sum({h for h, _ in groups})
     return max(24 * min(2 * h * w, LDE_CHUNK_CELLS) + 256 * h

@@ -128,8 +128,6 @@ def _library():
             raise RuntimeError(f"{st.__name__}: the library's layout is "
                                f"{size()} bytes, the wrapper's "
                                f"{ctypes.sizeof(st)}")
-    lib.lurk_open_eval_occupancy.restype = ctypes.c_int
-    lib.lurk_open_eval_occupancy.argtypes = [ctypes.c_int]
     return lib
 
 
@@ -295,16 +293,6 @@ def launch_eval(args: dict) -> torch.Tensor:
                  _library().lurk_open_eval)
     _count(open_eval)
     return args["out"].tensor
-
-
-def eval_resident_blocks(device: torch.device) -> int:
-    """open_eval blocks that one SM of the card holds at once."""
-    n = _library().lurk_open_eval_occupancy(
-        device.index if device.index is not None else
-        torch.cuda.current_device())
-    if n < 0:
-        raise RuntimeError("occupancy of the open_eval kernel failed")
-    return n
 
 
 def eval_plain(coeffs: torch.Tensor, zs: Sequence[tuple]) -> torch.Tensor:

@@ -4,12 +4,14 @@ chips of Lurk fib(100000)'s shard 0 at ShardingConfig(262144); then, where
 the tree's chip_smoke.py has phase 26, open_eval, open_reduce and
 fri_fold at the same shard's shapes.
 
-    python3 scripts/quotient_phase25.py [TREE] [--open]
+    python3 scripts/quotient_phase25.py [TREE] [--open] [--odd-stride]
 
 TREE (default: this checkout) is the root of the checkout whose
 chip_smoke.py and lurk_tpu_torch to run, so that one call on the card can
 time two trees in turns (parent, change, change, parent). With --open,
-phase 26 alone. Needs a card;
+phase 26 alone; with --odd-stride, phase 26 also holds and times
+open_eval on column slices of wider matrices (odd row strides, the
+inputs of the tree before the grouped open_eval). Needs a card;
 prints the card's name and power limit and each chip's or group's line as
 chip_smoke.py does, then the totals as JSON.
 """
@@ -21,7 +23,8 @@ from pathlib import Path
 
 
 def main() -> int:
-    args = [a for a in sys.argv[1:] if a != "--open"]
+    flags = {"--open", "--odd-stride"}
+    args = [a for a in sys.argv[1:] if a not in flags]
     root = Path(args[0] if args else
                 Path(__file__).resolve().parents[1]).resolve()
     sys.path.insert(0, str(root))
@@ -46,8 +49,9 @@ def main() -> int:
         chip_smoke.quotient_kernels_full_width(torch.device("cuda"),
                                                f"[{gpu}]", mqs)
     if hasattr(chip_smoke, "open_kernels_full_width"):
-        tot.update(chip_smoke.open_kernels_full_width(torch.device("cuda"),
-                                                      f"[{gpu}]", mqs))
+        extra = {"odd_stride": True} if "--odd-stride" in sys.argv else {}
+        tot.update(chip_smoke.open_kernels_full_width(
+            torch.device("cuda"), f"[{gpu}]", mqs, **extra))
     print(json.dumps(tot))
     return 0
 

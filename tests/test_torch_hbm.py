@@ -234,7 +234,11 @@ def test_cuda_models_the_open_kernels_buffers():
     the CPU's model keeps."""
     groups = [(1 << 18, 520), (1 << 17, 218), (1 << 18, 660), (16, 120)]
     cuda = hbm._open_transient(groups, cuda=True)
-    assert cuda == 96 * (520 + 218 + 660 + 120) + 4 * 2048 + 32 * 660 + \
+    # tables: 1,024 B of powers a group; 92 B a column tile (5, 2, 6 and
+    # 1 tiles); 4 B a block (tiles x rows / 1,024)
+    tables = 4 * 1024 + 92 * (5 + 2 + 6 + 1) + \
+        4 * (5 * 256 + 2 * 128 + 6 * 256 + 1)
+    assert cuda == 96 * (520 + 218 + 660 + 120) + tables + 32 * 660 + \
         32 * ((1 << 18) + (1 << 17) + 16)
     assert hbm._open_transient(groups, cuda=False) > 10 * cuda
     assert hbm._open_transient([], cuda=True) == 0

@@ -572,17 +572,15 @@ def test_grouped_eval_matches_lurk_tpu():
     """The grouped packing, interpreted, on groups of 1 to 2^12 rows with
     widths 1, 7 and 300, odd strides, one and two points and a repeated
     point (zeta twice, as a 1-row matrix's list has it), group by group
-    equal to lurk_tpu's jitted programs (a shape each: JAX compiles each
+    equal to lurk_tpu's jitted programs (three shapes: JAX compiles each
     anew). Past 16 rows lurk_tpu's _eval_coeffs_fn runs on
     device_ext_powers' powers (_ext_powers_fn compiles for half a minute
     at 2^12 rows; the two agree at 16 rows in
     test_eval_plain_matches_lurk_tpu)."""
     rng = np.random.default_rng(21)
     zeta = _ext(rng)
-    shapes = [(1, 7, 2), (16, 300, 2), (16, 1, 1), (16, 7, 2),
-              (1 << 12, 7, 2)]
-    points = [[zeta, zeta], [zeta, _ext(rng)], [zeta], [_ext(rng), zeta],
-              [zeta, _ext(rng)]]
+    shapes = [(1, 1, 2), (16, 300, 2), (16, 300, 1), (1 << 12, 7, 2)]
+    points = [[zeta, zeta], [zeta, _ext(rng)], [zeta], [_ext(rng), zeta]]
     groups = _groups(rng, shapes, points)
     got = interpret_eval(ok.eval_args(groups)).numpy()
     off = 0
@@ -598,25 +596,35 @@ def test_grouped_eval_matches_lurk_tpu():
 
 
 def test_eval_worst_case_column_is_exact():
-    """An all-(p - 1) column of 2^15 + 3 rows at z = (p - 1, p - 1, p - 1,
-    p - 1) (and a second point), and beside it 65 columns of 0x77ffffff
-    (three bytes 255, a 128-column tile) at the same height: interpreted,
-    equal to the plain version (every s32 sum below 2^31), and the column
-    equal to lurk_tpu's jitted _eval_coeffs_fn at the first point, on
-    device_ext_powers' powers in Montgomery form (lurk_tpu's
-    _ext_powers_fn compiles for a minute at this height; the two agree at
-    16 rows in test_eval_plain_matches_lurk_tpu)."""
-    h = (1 << 15) + 3
-    whole = torch.full((h, 3), P - 1, dtype=torch.int32)
-    coeffs = whole[:, 1:2]
-    wide = torch.full((h, 65), 0x77ffffff, dtype=torch.int32)
+    """An all-(p - 1) column of 2^15 + 3 rows (a slice of odd stride) at
+    z = (p - 1, p - 1, p - 1, p - 1) and a second point: interpreted (every
+    s32 sum held below 2^31), equal to the plain version, and at both
+    points equal to lurk_tpu's jitted _eval_coeffs_fn at the shape that
+    test_grouped_eval_matches_lurk_tpu compiles, (2^12, 7): the column,
+    zero past its rows, cut into chunks of 2^12 rows laid side by side,
+    each chunk's value scaled by (z^(2^12))^c (a new shape would compile
+    anew, and lurk_tpu's _ext_powers_fn takes a minute at this height)."""
+    h, rows, w = (1 << 15) + 3, 1 << 12, 7
+    coeffs = torch.full((h, 3), P - 1, dtype=torch.int32)[:, 1:2]
     zs = [(P - 1,) * 4, (P - 1, 0, 0, P - 1)]
-    groups = [(coeffs, zs), (wide, zs)]
-    got = interpret_eval(ok.eval_args(groups))
-    assert torch.equal(got, ok.eval_groups_plain(groups))
-    zp = dp.device_ext_powers(zs[0], h, CPU).numpy()
-    np.testing.assert_array_equal(got[:1].numpy(), _jax_eval(
-        coeffs, zs[0], _jnp(_mul(zp, R1))))
+    got = interpret_eval(ok.eval_args([(coeffs, zs)]))
+    assert torch.equal(got, ok.eval_groups_plain([(coeffs, zs)]))
+    blocks = -(-h // (rows * w))
+    padded = np.zeros(blocks * rows * w, np.uint32)
+    padded[:h] = P - 1
+    for k, z in enumerate(zs):
+        zp = _jnp(_mul(dp.device_ext_powers(z, rows, CPU).numpy(), R1))
+        step = ext_t.epow_s(z, rows)
+        want, scale = (0, 0, 0, 0), (1, 0, 0, 0)
+        for b in range(blocks):
+            chunk = padded[b * rows * w:(b + 1) * rows * w]
+            ys = np.asarray(jdp._eval_coeffs_fn(rows, w)(
+                _jnp(chunk.reshape(w, rows).T), zp))
+            for y in ys:
+                want = ext_t.eadd_s(want, ext_t.emul_s(
+                    scale, tuple(int(v) for v in y)))
+                scale = ext_t.emul_s(scale, step)
+        assert tuple(int(v) for v in got[k]) == want
 
 
 @pytest.mark.parametrize("log_big,w,n_points,add", [
