@@ -38,9 +38,9 @@ Phases (each raises on failure; nothing is caught):
      constraint_quotient, logup_perm_phi, open_eval, open_reduce and
      fri_fold launches equal plan_stats.py's count (one quotient launch
      per device chip, one perm launch per such chip with interactions, one
-     open_eval per shard for all of its height groups, one open_reduce per
-     height group of every round of every shard, one fri_fold per FRI
-     layer above the host tail; phase 16 too);
+     open_eval and one open_reduce per shard for all of its height
+     groups, one fri_fold per FRI layer above the host tail; phase 16
+     too);
  11. the REPL: one lurk_tpu_torch REPL at the CLI's default config
      (PRODUCTION_CONFIG) loads the demo corpus (golden.DEMO_FILES, `!(clear)`
      before each); every `!(prove)` runs on the card, every proof file
@@ -114,8 +114,10 @@ Phases (each raises on failure; nothing is caught):
      (stark/open_kernel.py) bit-equal to their plain versions at the
      shapes of phase 10's shard 0: every height group of its four rounds
      (plan_stats.open_groups) in one open_eval launch, an all-(p - 1)
-     column of 2^15 + 3 rows, each group's open_reduce, and every FRI
-     layer above the host tail as pair matrices; each timed with CUDA
+     column of 2^15 + 3 rows, all their reduced openings in one
+     open_reduce launch (with alpha^o weight segments; then an all-(p - 1)
+     group wider than one s32 sum and a zero denominator apart), and every
+     FRI layer above the host tail as pair matrices; each timed with CUDA
      events (the kernel's launches alone, the wrapper's calls) beside its
      plain version, its bound (bytes over HBM against products at the
      tensor cores' exact rate) and the CUDA cores' operations bound.
@@ -1555,22 +1557,47 @@ def _open_ops(kind: str, rows: int, w: int, n: int, accumulate: bool
     """(bytes, base-field products, adds) of one open kernel's function at
     its shape: each input read once and each output written once; the
     least field operations (a product by each weight, power or inverse;
-    the powers of z and the domain points by one product a row; the
-    inverses of x - z as one Montgomery batch: 3 extension multiplies
-    each)."""
+    the powers of z by one product a row). open_reduce's are
+    _reduce_ops'."""
     em, ea = _EXT_MUL
     if kind == "open_eval":          # rows = h
         n_bytes = 4 * rows * w + 16 * n * w
         muls = n * (4 * rows * w + em * rows)
         adds = n * (4 * rows * w + ea * rows)
-    elif kind == "open_reduce":      # rows = H
-        n_bytes = 4 * rows * w + 16 * n * w + 16 * rows * (1 + accumulate)
-        muls = rows + n * rows * (4 * w + 3 * em + em) + _EXT_INV[0]
-        adds = n * rows * (4 * w + 1 + 3 * ea + ea + 8) + _EXT_INV[1]
     else:                            # fri_fold, rows = n / 2 outputs
         n_bytes = 16 * rows * (3 + accumulate)
         muls = rows * (1 + 8 + em)
         adds = rows * (8 + ea + 4 + 4 * accumulate)
+    return n_bytes, muls, adds
+
+
+def _reduce_ops(args: dict, groups) -> tuple:
+    """(bytes, base-field products, adds) of open_reduce's function over
+    (lde, zs, segments, y_alpha) groups packed in `args`
+    (reduce_groups_args): every LDE byte read once, each height's
+    codeword written once, the packed records read once; a product by
+    each weight (4 a value and point), the weights themselves (one
+    extension product a column and point from alpha^o), the domain
+    points by one product a row, the inverses of x - z as one Montgomery
+    batch over the launch (3 extension multiplies each, one extension
+    inverse), and a product by each inverse."""
+    from lurk_tpu_torch.stark import open_kernel as ok
+    em, ea = _EXT_MUL
+    n_bytes = 56 * (args["n_chunks"] + args["n_segs"]) + 8 * sum(
+        ok.RECORD_ARRAYS.get(f, 1) for f in ok.HEIGHT_FIELDS) * \
+        args["n_heights"]
+    muls, adds = _EXT_INV
+    slots: dict = {}
+    for lde, zs, _, _ in groups:
+        rows, w = (int(v) for v in lde.shape)
+        n_bytes += 4 * rows * w
+        muls += len(zs) * (4 * rows * w + em * w)
+        adds += len(zs) * (4 * rows * w + ea * w)
+        slots.setdefault(rows, set()).update(tuple(z) for z in zs)
+    for rows, zs in slots.items():
+        n_bytes += 16 * rows
+        muls += rows * (1 + len(zs) * 4 * em)
+        adds += rows * len(zs) * (1 + 4 * ea + 8)
     return n_bytes, muls, adds
 
 
@@ -1591,6 +1618,42 @@ def _open_bound(ops: tuple, sms: int, clock_hz: float) -> dict:
                 cuda_core_ops_ms=slots / (sms * clock_hz) * 1e3)
 
 
+def _open_points(rnd: str, log_h: int, n: int, zeta: tuple) -> list:
+    """A height group's opening points as the prover makes them: zeta and
+    zeta * g (one point where the group has one), zeta^2 for the quotient
+    round."""
+    from lurk_tpu_torch.field import babybear as bb
+    from lurk_tpu_torch.field import ext as ext_t
+    if rnd == "quotient":
+        return [ext_t.emul_s(zeta, zeta)]
+    g = bb.two_adic_generator_s(log_h) if log_h else 1
+    return [zeta, ext_t.emul_s(zeta, (g, 0, 0, 0))][:n]
+
+
+def reduce_groups(dev, mgroups, zeta: tuple, alpha: tuple, rng) -> list:
+    """open_reduce_groups' (lde, zs, segments, y_alpha) groups for
+    plan_stats.open_groups(..., matrices=True)'s (round, log h, matrix
+    widths, points) groups, as device_open_rounds makes them: a random
+    contiguous (2h, w) LDE, the prover's points, a segment alpha^o for
+    each matrix and each point (o counting every (matrix, point)'s
+    columns), random y_alpha."""
+    import torch
+    from lurk_tpu_torch.field import ext as ext_t
+    out, o = [], 0
+    for rnd, log_h, widths, n in mgroups:
+        zs = _open_points(rnd, log_h, n, zeta)
+        segs, c0 = [], 0
+        for w in widths:
+            for k in range(len(zs)):
+                segs.append((k, c0, w, ext_t.epow_s(alpha, o)))
+                o += w
+            c0 += w
+        out.append((torch.randint(0, P_FIELD, (2 << log_h, c0),
+                                  dtype=torch.int32, device=dev), zs, segs,
+                    rng.integers(0, P_FIELD, (len(zs), 4))))
+    return out
+
+
 def open_kernels_full_width(dev, on: str, mqs, odd_stride: bool = False
                             ) -> dict:
     """Phase 26: open_eval, open_reduce and fri_fold against their plain
@@ -1600,11 +1663,15 @@ def open_kernels_full_width(dev, on: str, mqs, odd_stride: bool = False
     device_open_rounds makes it, on random contiguous coefficient
     matrices (the layout dcommit gives them; with `odd_stride`, also
     held and timed on column slices of wider matrices, printed only),
-    random points (zeta and zeta * g where the group has two), and an
-    all-(p - 1) column of 2^15 + 3 rows at z = (p - 1, ...); random LDE
-    columns read in place from wider matrices; each group's reduced
-    openings (random weights and y_alpha) added into its height's
-    codeword as device_open_rounds adds them; then every FRI layer above
+    the prover's points (zeta and zeta * g where the group has two, zeta^2
+    for the quotient round), and an all-(p - 1) column of 2^15 + 3 rows
+    at z = (p - 1, ...); every group's reduced openings in one
+    open_reduce_groups launch, as device_open_rounds makes it, on random
+    contiguous LDEs with a weight segment alpha^o for each matrix of a
+    group (plan_stats.open_groups' matrix widths) and each point, and
+    random y_alpha, each height's codeword written once; an all-(p - 1)
+    group of 2 rows wider than one s32 sum and a point on the domain,
+    held in a launch of their own; then every FRI layer above
     the host tail from the shard's largest height, its pair matrix folded
     into the next layer's, adding the codeword of the next height where
     there is one. Each call's times
@@ -1618,11 +1685,13 @@ def open_kernels_full_width(dev, on: str, mqs, odd_stride: bool = False
     from lurk_tpu_torch import plan_stats
     from lurk_tpu_torch.field import ext as ext_t
     from lurk_tpu_torch.field import babybear as bb
+    from lurk_tpu_torch.field.ntt import GENERATOR
     from lurk_tpu_torch.stark import device_prover as dp
     from lurk_tpu_torch.stark import open_kernel as ok
     from lurk_tpu_torch.stark.fri import layer_shift
     machine, _, _, q, cfg = mqs
-    groups = plan_stats.open_groups(machine, q, cfg)[0]
+    mgroups = plan_stats.open_groups(machine, q, cfg, matrices=True)[0]
+    groups = [(r, lh, sum(ws), n) for r, lh, ws, n in mgroups]
     rng = np.random.default_rng(26)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock = _max_sm_clock_hz()
@@ -1646,10 +1715,9 @@ def open_kernels_full_width(dev, on: str, mqs, odd_stride: bool = False
     zeta = ext()
     egroups, labels = [], []
     for rnd, log_h, w, n in groups:
-        g = bb.two_adic_generator_s(log_h) if log_h else 1
         egroups.append((torch.randint(0, P_FIELD, (1 << log_h, w),
                                       dtype=torch.int32, device=dev),
-                        [zeta, ext_t.emul_s(zeta, (g, 0, 0, 0))][:n]))
+                        _open_points(rnd, log_h, n, zeta)))
         labels.append(f"{rnd} group of {1 << log_h} rows x {w} columns, "
                       f"{n} point(s)")
     # open_eval: every group at once, held group by group, on contiguous
@@ -1699,36 +1767,49 @@ def open_kernels_full_width(dev, on: str, mqs, odd_stride: bool = False
     print(f"open_eval == plain on an all-(p - 1) column of 2^15 + 3 rows "
           f"at z = (p - 1, ...) {on}")
     del worst
-    # open_reduce, into the height's codeword where there is one
-    ro = {}
-    for (rnd, log_h, w, n), (_, zs), label in zip(groups, egroups, labels):
-        big = 2 << log_h
-        lde = column(big, w)
-        weights = rng.integers(0, P_FIELD, (n, w, 4))
-        ya = rng.integers(0, P_FIELD, (n, 4))
-        base = ro.get(log_h + 1)
-        copy = (lambda: None) if base is None else base.clone
-        want = ok.reduce_plain(copy(), lde, zs, weights, ya)
-        err = held("open_reduce", ok.open_reduce(copy(), lde, zs, weights,
-                                                 ya), want, label)
-        args = ok.reduce_args(copy(), lde, zs, weights, ya)
-        k_ms = _event_ms(lambda: ok.launch_reduce(args), 5)
-        _sync()
-        # six launches: the codeword plus six times the group's openings
-        expect = want if base is None else \
-            (base.long() + 6 * (want.long() - base.long())) % P_FIELD
-        held("open_reduce's timed launches", args["out"].tensor.long(),
-             expect.long(), label)
-        scratch = copy()
-        w_ms = _event_ms(lambda: ok.open_reduce(scratch, lde, zs, weights,
-                                                ya), 3)
-        p_ms = _event_ms(lambda: ok.reduce_plain(base, lde, zs, weights,
-                                                 ya), 1)
-        runs.append(("open_reduce", label, k_ms, w_ms, p_ms, err,
-                     _open_ops("open_reduce", big, w, n, base is not None)))
-        ro[log_h + 1] = want
-        del lde, args, scratch
-    del egroups
+    # open_reduce: every height group of the shard in one launch, as
+    # device_open_rounds makes them (contiguous LDEs; a weight segment
+    # alpha^o for each matrix of a group and each of its points), written
+    # once per height; then, in a launch of their own, an all-(p - 1) group
+    # wider than one s32 sum's FLUSH_CHUNKS chunks and a point on the
+    # domain (x - z = 0 at one row)
+    alpha = ext()
+    rgroups = reduce_groups(dev, mgroups, zeta, alpha, rng)
+    want = ok.reduce_groups_plain(rgroups, alpha)
+    got = ok.open_reduce_groups(rgroups, alpha)
+    err = max(held("open_reduce", got[lh], want[lh],
+                   f"shard 0's codeword of 2^{lh} rows") for lh in want)
+    args = ok.reduce_groups_args(rgroups, alpha)
+    k_ms = _event_ms(lambda: ok.launch_reduce(args), 5)
+    _sync()
+    for lh in want:
+        held("open_reduce's timed launches", args["outs"][lh], want[lh],
+             f"shard 0's codeword of 2^{lh} rows")
+    w_ms = _event_ms(lambda: ok.open_reduce_groups(rgroups, alpha), 3)
+    p_ms = _event_ms(lambda: ok.reduce_groups_plain(rgroups, alpha), 1)
+    runs.append(("open_reduce", f"{len(rgroups)} groups of {len(want)} "
+                 f"heights in one launch ({args['blocks']} row items of "
+                 f"{ok.REDUCE_ROWS} rows)", k_ms, w_ms, p_ms, err,
+                 _reduce_ops(args, rgroups)))
+    ro = want
+    wide = ok.FLUSH_CHUNKS * ok.REDUCE_COLS + 3
+    x5 = GENERATOR * pow(bb.two_adic_generator_s(12), 5, P_FIELD) % P_FIELD
+    extra = [(torch.full((2, wide + 3), P_FIELD - 1, dtype=torch.int32,
+                         device=dev)[:, 1:1 + wide], [(P_FIELD - 1,) * 4],
+              [(0, 0, wide, (P_FIELD - 1,) * 4)],
+              rng.integers(0, P_FIELD, (1, 4))),
+             (column(1 << 12, 7), [zeta, (x5, 0, 0, 0)],
+              [(0, 0, 7, alpha), (1, 0, 7, ext_t.epow_s(alpha, 7))],
+              rng.integers(0, P_FIELD, (2, 4)))]
+    want_x = ok.reduce_groups_plain(extra, alpha)
+    got_x = ok.open_reduce_groups(extra, alpha)
+    for lh in want_x:
+        held("open_reduce", got_x[lh], want_x[lh], "an all-(p - 1) group "
+             f"of {wide} columns and a point on the domain")
+    print(f"open_reduce == plain on an all-(p - 1) group of 2 rows x "
+          f"{wide} columns (past {ok.FLUSH_CHUNKS} chunks of one s32 sum) "
+          f"and a group with x - z = 0 at row 5 of 2^12 {on}")
+    del rgroups, extra, args, got, got_x, want_x, egroups
     max_log = max(ro)
     floor = max(dp._fri_host_tail_log(), machine.config.log_blowup)
     for layer, log_n in enumerate(range(max_log, floor, -1)):

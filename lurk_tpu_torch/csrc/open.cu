@@ -10,10 +10,12 @@
 // for all groups and points in ONE launch.
 //
 // open_reduce_kernel replaces _inv_xz_fn and _reduce_fn and the addition
-// of their result into the reduced codeword of the group's height. For
-// every row x of the group's (H, w) LDE, on the coset GENERATOR * <g_H>,
-//   ro[x] (+)= sum_k (sum_c weights[k, c] * lde[x, c] - ya[k]) / (x - z_k)
-// with 1/0 taken as 0, as einv does.
+// of their results into the reduced codewords. For every row x of the
+// coset GENERATOR * <g_H> of every height H, over the (H, w) LDEs of the
+// height's groups in every round of a shard,
+//   ro[H][x] = sum_groups sum_k (sum_c W[k, c] * lde[x, c] - ya[k]) / (x - z_k)
+// with 1/0 taken as 0, as einv does, in ONE launch; the weights W are
+// alpha^(o + e), made on the card from one scalar alpha^o a segment.
 //
 // fri_fold_kernel replaces _fold_fn and the addition of the input
 // codeword of the next height. For i < n/2, with f(x) = cw[i] and f(-x) =
@@ -65,13 +67,59 @@
 //   block of a column tile reduces them mod p, writes the output and sets
 //   the accumulators and its counter back to zero.
 //
-// open_reduce does four products per (row, column, point) on four bytes of
-// input, a few hundred columns wide; it stages a tile of REDUCE_ROWS LDE
-// rows and REDUCE_COLS columns with coalesced loads into shared memory
-// (odd row stride: a warp, one row a thread, hits 32 banks) beside the
-// chunk's weights, read as broadcasts; one thread sums its row for every
-// point in Montgomery form with lazy 64-bit sums (babybear.cuh) and divides
-// by x - z with one extension inverse per row and point (0 maps to 0).
+// open_reduce. Its function is the same kind of product, transposed: an
+// (H x w) LDE times a (w x 4 points) matrix of extension weights, four
+// bytes read per 16 base products. On the CUDA cores (its first version:
+// 31-bit Montgomery products, one launch a group, synchronous tile loads,
+// a domain power and an extension inverse per row and point) it ran at
+// about a third of its bytes bound. Here:
+// - The products go to the tensor cores as open_eval's do, exactly, with
+//   u8 x u8 -> s32 mma.sync m16n8k32: A is a stage of the LDE (M = 16
+//   rows a warp, K = 32 columns, the fast index of the row-major slice;
+//   one 16-byte word is four columns of a row, byte-transposed by prmt
+//   into the four planes' registers), B the weights' byte planes (N =
+//   2 slots x 4 limbs an n-tile; a chunk takes the one or two n-tiles
+//   its segments' slots need, so the quotient round's third point costs
+//   its own chunks' MMAs only). The 16 plane pairs
+//   (a, b) of one a + b share an s32 sum: 4 * 255^2 * 32 * FLUSH_CHUNKS <
+//   2^31, so every FLUSH_CHUNKS stages each sum is reduced mod p, scaled
+//   by 2^(8(a+b)) and added into a canonical one; there is no width limit.
+// - mma.sync rather than wgmma, for open_eval's reasons: skinny products
+//   (N = 8 or 16) on operands that need a byte transpose in registers.
+// - One launch a shard: a work item is REDUCE_ROWS rows of one output
+//   height, through a table of heights (their codewords, distinct points
+//   and y_alpha), of column chunks (a group's REDUCE_COLS columns) and of
+//   weight segments. An item sums every group of its height into the same
+//   accumulators (groups that share a point share its numerator) and
+//   writes each row of ro once: no read-modify-write per group.
+// - Persistent blocks: the launch has as many blocks as the card holds
+//   at once (small ones, 4 warps of 16 rows, four an SM), and each draws
+//   tickets from an atomic counter until they run out, heavy heights
+//   first. A block draws its next ticket while it streams an item and
+//   issues the next item's first stages before the last one's epilogue,
+//   so copies stay in flight across items.
+// - LDE stages come in by cp.async into a ring of REDUCE_STAGES (16-, 8-
+//   or 4-byte copies, as the slice's stride and address allow; ragged
+//   rows and columns zero-filled), XOR-swizzled so fragment loads hit 32
+//   banks.
+// - Weights are made on the card, in the same launch: the first tickets
+//   each make the B planes of WEIGHT_CHUNKS chunks into a small global
+//   buffer (a table of alpha^e from alpha^(2^j); per column and slot,
+//   a * alpha^(c - c0) summed over the segments that hold it; four lanes
+//   byte-transpose one limb of four columns). A block's first row item
+//   waits for those tickets, which were drawn before its own by running
+//   blocks that wait for nothing, then copies each stage's planes beside
+//   its LDE words. (Made by every block for every stage, the weights sat
+//   on each stage's critical path.)
+// - The stages' sources (a chunk's address, stride and width) are read
+//   an iteration ahead of their copies.
+// - Denominators once per (row, distinct point), a thread a row: x =
+//   GENERATOR * g^row from the table of generators (the item's first
+//   row once, then each row's low bits; no squarings), and every x - z of
+//   the item inverted as one Montgomery batch (warp shuffles for the
+//   prefix and suffix products, the warps' products combined by a lane
+//   each, one extension inverse an item; a zero denominator counts as one
+//   in the batch and its inverse as zero).
 //
 // fri_fold moves 64 bytes an output for about 30 products: its bytes bound
 // it. A thread takes FOLD_RUN outputs FOLD_THREADS apart (each warp's
@@ -103,8 +151,25 @@ constexpr int Z_COLS = 32;         // Z's byte-plane columns (b, k, l)
 constexpr int Z_LD = ITEM_ROWS / 4 + 4;  // words a column: 4 mod 32
 constexpr int EVAL_SMEM = 4 * (STAGES * STAGE_WORDS + Z_COLS * Z_LD);
 constexpr int TILE_WORDS = 11;     // 8-byte words of an EvalTile
-constexpr int REDUCE_ROWS = 128;  // rows (and threads) of an open_reduce block
-constexpr int REDUCE_COLS = 32;   // LDE columns staged at a time
+constexpr int HEIGHT_WORDS = 39;   // ... of a ReduceHeight
+constexpr int CHUNK_WORDS = 8;     // ... of a ReduceChunk
+constexpr int SEG_WORDS = 7;       // ... of a ReduceSeg
+constexpr int REDUCE_THREADS = 128;  // threads of an open_reduce block
+constexpr int REDUCE_WARPS = REDUCE_THREADS / 32;
+constexpr int REDUCE_ROWS = 64;      // rows of a block: 16 a warp
+constexpr int ROW_WARPS = REDUCE_ROWS / 32;  // a row a thread at the end
+constexpr int REDUCE_COLS = 32;      // LDE columns of a stage: the MMA's K
+constexpr int REDUCE_STAGES = 4;     // the cp.async ring
+constexpr int RSTAGE_WORDS = REDUCE_ROWS * REDUCE_COLS;
+constexpr int MAX_SLOTS = 4;         // distinct points of one height
+constexpr int N_TILES = MAX_SLOTS / 2;  // n-tiles of 8: 2 slots x 4 limbs
+constexpr int WB_WORDS = N_TILES * 4 * 8 * 8;  // a stage's weight planes
+constexpr int MAX_SEG_W = 256;       // columns of a weight segment
+constexpr int LOG_SEG = 8;
+constexpr int FLUSH_CHUNKS = 256;    // stages summed in s32 between flushes
+constexpr int WEIGHT_CHUNKS = 8;     // chunks of a weight ticket
+constexpr int REDUCE_SMEM =
+    4 * (REDUCE_STAGES * (RSTAGE_WORDS + WB_WORDS) + 4 * 2 * REDUCE_WARPS);
 constexpr int FOLD_THREADS = 256;
 constexpr int LOG_FOLD_THREADS = 8;
 constexpr int FOLD_RUN = 4;       // outputs of a fri_fold thread
@@ -112,6 +177,16 @@ constexpr uint32_t TWO_INV_M = 134217727u;  // 1/2 in Montgomery form
 
 static_assert((1 << LOG_FOLD_THREADS) == FOLD_THREADS, "FOLD_THREADS");
 static_assert(Z_LD % 32 == 4, "Z_LD: a warp's B loads hit 32 banks");
+static_assert(REDUCE_ROWS == 16 * REDUCE_WARPS, "REDUCE_ROWS: 16 a warp");
+static_assert(REDUCE_ROWS % 32 == 0 && REDUCE_ROWS < REDUCE_THREADS,
+              "the epilogue's warps");
+static_assert(1 << LOG_SEG == MAX_SEG_W, "LOG_SEG");
+static_assert(16 * (MAX_SEG_W + REDUCE_WARPS * REDUCE_COLS) <= REDUCE_SMEM,
+              "a weight ticket's tables fit a row item's shared memory");
+// an s32 sum takes the four (a, b) byte planes of one a + b over
+// FLUSH_CHUNKS stages: exact below 2^31
+static_assert(4LL * 255 * 255 * REDUCE_COLS * FLUSH_CHUNKS < (1LL << 31),
+              "FLUSH_CHUNKS");
 
 // SHIFT_M[s] = 2^(8s) in Montgomery form: 2^(8s + 32) mod p.
 __constant__ uint32_t SHIFT_M[7] = {268435454u, 268434910u, 268295646u,
@@ -148,19 +223,54 @@ struct EvalArgs {
   int32_t* out;              // (rows, 4): group by group, (n_points, w, 4)
 };
 
-struct ReduceArgs {
-  const int32_t* lde;        // (2^log_big, w), row stride ld
+// One output height: its codeword and the points of its groups.
+struct ReduceHeight {
+  int32_t* out;              // (2^log_h, 4)
+  const int32_t* add;        // (2^log_h, 4) added into out, or null
+  long long log_h;
+  long long n_slots;         // the height's distinct points, 1 to MAX_SLOTS
+  long long first_chunk;     // its column chunks in ReduceArgs::chunks
+  long long chunks;
+  long long first_block;     // row items of the heights before this one
+  long long z[MAX_SLOTS * 4];   // the points, Montgomery
+  long long ya[MAX_SLOTS * 4];  // y_alpha of each point, summed over groups
+};
+
+// REDUCE_COLS columns of one group's LDE.
+struct ReduceChunk {
+  const int32_t* lde;        // the group's (2^log_h, w) slice, row stride ld
   long long ld;
-  long long log_big;
   long long w;
-  long long n_points;
-  long long z[MAX_POINTS * 4];
-  long long ya[MAX_POINTS * 4];
-  const uint32_t* weights;   // (n_points, w, 4)
-  long long x0;              // GENERATOR
-  long long g;               // the domain's generator
-  long long accumulate;      // 1: add into out; 0: write out
-  int32_t* out;              // (2^log_big, 4)
+  long long c0;              // the chunk's first column
+  long long vec;             // words a copy: 4, 2 or 1
+  long long tiles;           // n-tiles its segments' slots need: 1 or 2
+  long long first_seg;       // the segments that meet the chunk
+  long long segs;
+};
+
+// Weights a * alpha^e of columns c0 + e, e < w, of a group at one slot.
+struct ReduceSeg {
+  long long c0;
+  long long w;               // at most MAX_SEG_W
+  long long slot;
+  long long a[4];            // alpha^o, Montgomery
+};
+
+struct ReduceArgs {
+  const ReduceHeight* heights;  // (n_heights,)
+  const ReduceChunk* chunks;    // each height's in turn
+  const ReduceSeg* segs;        // each chunk's in turn
+  uint32_t* wts;                // (n_chunks, WB_WORDS): the weight planes
+  int* ctr;                     // (3,): tickets, weight tickets done,
+                                // blocks done; zero before the launch
+  long long n_heights;
+  long long n_chunks;
+  long long wblocks;            // weight tickets: WEIGHT_CHUNKS chunks each
+  long long blocks;             // row items
+  long long seg_w;              // the widest segment: alpha^e table rows
+  long long x0;                 // GENERATOR, Montgomery
+  long long gens[LOG_POWERS];   // g_k, the generator of order 2^k, Montgomery
+  long long apow[LOG_SEG * 4];  // alpha^(2^j), Montgomery
 };
 
 struct FoldArgs {
@@ -174,6 +284,9 @@ struct FoldArgs {
 };
 
 static_assert(sizeof(EvalTile) == 8 * TILE_WORDS, "EvalTile");
+static_assert(sizeof(ReduceHeight) == 8 * HEIGHT_WORDS, "ReduceHeight");
+static_assert(sizeof(ReduceChunk) == 8 * CHUNK_WORDS, "ReduceChunk");
+static_assert(sizeof(ReduceSeg) == 8 * SEG_WORDS, "ReduceSeg");
 
 __device__ __forceinline__ Ext ext_at(const long long* v, int k) {
   return Ext{{static_cast<uint32_t>(v[4 * k]),
@@ -188,25 +301,6 @@ __device__ __forceinline__ Ext ext_of(uint4 v) {
 
 __device__ __forceinline__ uint4 uint4_of(const Ext& e) {
   return make_uint4(e.c[0], e.c[1], e.c[2], e.c[3]);
-}
-
-// x^e in Montgomery form.
-__device__ inline uint32_t mpow(uint32_t x, unsigned long long e) {
-  uint32_t acc = bb::ONE_M;
-  while (e) {
-    if (e & 1) acc = bb::mmul(acc, x);
-    e >>= 1;
-    if (e) x = bb::mmul(x, x);
-  }
-  return acc;
-}
-
-// acc += v * p for the four limbs of p (v canonical, p Montgomery), each
-// sum kept below p * 2^32 by one fold per product.
-__device__ __forceinline__ void mac4(uint64_t acc[4], uint32_t v,
-                                     const uint32_t* p) {
-#pragma unroll
-  for (int l = 0; l < 4; ++l) acc[l] = bb::fold_hi(acc[l] + bb::wide(v, p[l]));
 }
 
 // ---------------------------------------------------------------------------
@@ -441,69 +535,448 @@ __global__ void __launch_bounds__(EVAL_THREADS, 2)
   if (t == 0) a.counter[tile] = 0;
 }
 
-template <int NP>
-__global__ void __launch_bounds__(REDUCE_ROWS)
-    open_reduce_kernel(const ReduceArgs a) {
-  constexpr int LD = REDUCE_COLS + 1;
-  __shared__ uint32_t tile[REDUCE_ROWS * LD];
-  __shared__ uint4 wts[NP * REDUCE_COLS];
-  const int t = threadIdx.x;
-  const long long big = 1LL << a.log_big;
-  const long long r0 = static_cast<long long>(blockIdx.x) * REDUCE_ROWS;
-  const int rows = static_cast<int>(
-      min(static_cast<long long>(REDUCE_ROWS), big - r0));
-  const uint4* weights = reinterpret_cast<const uint4*>(a.weights);
-  uint64_t acc[NP][4];
-#pragma unroll
-  for (int k = 0; k < NP; ++k)
-#pragma unroll
-    for (int l = 0; l < 4; ++l) acc[k][l] = 0;
-  for (long long c0 = 0; c0 < a.w; c0 += REDUCE_COLS) {
-    const int cols = static_cast<int>(
-        min(static_cast<long long>(REDUCE_COLS), a.w - c0));
-    __syncthreads();  // the previous chunk is consumed
-    for (int e = t; e < rows * REDUCE_COLS; e += REDUCE_ROWS) {
-      const int r = e / REDUCE_COLS, cc = e % REDUCE_COLS;
-      if (cc < cols)
-        tile[r * LD + cc] =
-            static_cast<uint32_t>(__ldg(a.lde + (r0 + r) * a.ld + c0 + cc));
+// ---------------------------------------------------------------------------
+// open_reduce
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async8(uint32_t* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// The first word of 4-word chunk q of a staged row (REDUCE_COLS words): the
+// chunk's place XORed with 4 * (row % 2), so that the 8 lanes of a quarter
+// warp's 16-byte fragment loads (rows r, r + 1 by 4 chunks) hit 32 banks.
+__device__ __forceinline__ int r_word(int row, int q) {
+  return row * REDUCE_COLS + ((q ^ ((row & 1) << 2)) << 2);
+}
+
+// The word of a stage's weight planes that holds byte plane b of column
+// n (slot 4 n_tile + n / 4, limb n % 4) at the stage's columns 4 kw ..
+// 4 kw + 3: a lane's two B registers (kw = tig, tig + 4) side by side.
+__device__ __forceinline__ int wb_word(int nt, int b, int n, int kw) {
+  return ((nt * 4 + b) * 8 + n) * 8 + 2 * (kw & 3) + (kw >> 2);
+}
+
+__device__ __forceinline__ Ext shfl_up_ext(const Ext& v, int d) {
+  return Ext{{__shfl_up_sync(0xffffffffu, v.c[0], d),
+              __shfl_up_sync(0xffffffffu, v.c[1], d),
+              __shfl_up_sync(0xffffffffu, v.c[2], d),
+              __shfl_up_sync(0xffffffffu, v.c[3], d)}};
+}
+
+__device__ __forceinline__ Ext shfl_down_ext(const Ext& v, int d) {
+  return Ext{{__shfl_down_sync(0xffffffffu, v.c[0], d),
+              __shfl_down_sync(0xffffffffu, v.c[1], d),
+              __shfl_down_sync(0xffffffffu, v.c[2], d),
+              __shfl_down_sync(0xffffffffu, v.c[3], d)}};
+}
+
+// A weight ticket: the B planes of chunks WEIGHT_CHUNKS * ticket .. + 8,
+// written to args.wts. Warp w makes slot w % MAX_SLOTS of the ticket's
+// chunks (every REDUCE_WARPS / MAX_SLOTS-th from w / MAX_SLOTS): lane c sums a * alpha^(c - c0) over the chunk's segments of the
+// slot that hold column c (zero past the group's columns and for slots
+// past the height's points), then four lanes byte-transpose one limb of
+// four columns. alpha^e comes from a table made once a ticket.
+__device__ void make_weights(const ReduceArgs& a, int ticket,
+                             uint32_t* smem) {
+  uint4* ptab = reinterpret_cast<uint4*>(smem);       // (MAX_SEG_W,)
+  uint4* wv = ptab + MAX_SEG_W;                       // (REDUCE_WARPS, 32)
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  for (int e = t; e < a.seg_w; e += REDUCE_THREADS) {
+    Ext p{{1u, 0u, 0u, 0u}};                          // canonical
+    for (int j = 0; (e >> j) != 0; ++j)
+      if ((e >> j) & 1) p = bb::ext_mmul(p, ext_at(a.apow, j));
+    ptab[e] = uint4_of(p);
+  }
+  __syncthreads();
+  const int j = warp % MAX_SLOTS;
+  const long long last = min(a.n_chunks,
+                             static_cast<long long>(ticket + 1) *
+                                 WEIGHT_CHUNKS);
+  for (long long q = static_cast<long long>(ticket) * WEIGHT_CHUNKS +
+                     warp / MAX_SLOTS;
+       q < last; q += REDUCE_WARPS / MAX_SLOTS) {
+    const ReduceChunk& C = a.chunks[q];
+    const long long c = C.c0 + lane;
+    Ext sum = bb::ext_zero();
+    for (long long i = C.first_seg; i < C.first_seg + C.segs; ++i) {
+      const ReduceSeg& S = a.segs[i];
+      const long long e = c - S.c0;
+      if (S.slot == j && e >= 0 && e < S.w)
+        sum = bb::ext_madd(sum, bb::ext_mmul(ext_at(S.a, 0), ext_of(ptab[e])));
     }
-    for (int e = t; e < NP * cols; e += REDUCE_ROWS)
-      wts[(e / cols) * REDUCE_COLS + e % cols] =
-          __ldg(weights + (e / cols) * a.w + c0 + e % cols);
-    __syncthreads();
-    if (t < rows) {
-      const uint32_t* mine = tile + t * LD;
-      for (int cc = 0; cc < cols; ++cc) {
-        const uint32_t v = mine[cc];
+    uint4* mine = wv + warp * REDUCE_COLS;
+    mine[lane] = uint4_of(sum);
+    __syncwarp();
+    const int kw = lane >> 2, l = lane & 3;
+    const uint32_t* v = reinterpret_cast<const uint32_t*>(mine + 4 * kw);
+    uint32_t o[4];
+    transpose4(v[l], v[4 + l], v[8 + l], v[12 + l], o);
+    uint32_t* dst = a.wts + q * WB_WORDS;
 #pragma unroll
-        for (int k = 0; k < NP; ++k) {
-          const uint4 wv = wts[k * REDUCE_COLS + cc];
-          const uint32_t p[4] = {wv.x, wv.y, wv.z, wv.w};
-          mac4(acc[k], v, p);
+    for (int b = 0; b < 4; ++b)
+      dst[wb_word(j >> 1, b, 4 * (j & 1) + l, kw)] = o[b];
+    __syncwarp();
+  }
+  __threadfence();  // the planes before the count that publishes them
+  __syncthreads();
+  if (t == 0) atomicAdd(a.ctr + 1, 1);
+}
+
+// Where a stage's LDE words come from: the chunk's columns at the block's
+// first row.
+struct Src {
+  const int32_t* base;
+  long long ld;
+  int cols;
+  int vec;
+  int tiles;
+};
+
+// The barrier of the warps that hold a row each (named barrier 1).
+__device__ __forceinline__ void rows_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(REDUCE_ROWS) : "memory");
+}
+
+// An item's rows from its numerators, a thread a row (warps 0 ..
+// ROW_WARPS - 1): x - z for every row and slot, inverted as one
+// Montgomery batch over the item (each thread's running product over its
+// slots, a zero replaced by one; the warp's exclusive prefix and suffix
+// products by shuffles; per warp, the inverse of the item's product times
+// the other warps' products, one inverse an item), then each slot's
+// numerator less
+// y_alpha times its inverse (0 for x = z), summed, plus the addend,
+// written once. x0 is x of the item's first row.
+__device__ void reduce_epilogue(const ReduceArgs& a, const ReduceHeight& H,
+                                long long r0, int rows, int ns, uint32_t x0,
+                                const uint32_t* num, uint4* tot, uint4* fac) {
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const bool live = t < rows;
+  const Ext one{{bb::ONE_M, 0u, 0u, 0u}};
+  // x = x0 * g^t from the table of generators, g^(2^j) = g_(log_h - j)
+  uint32_t xm = x0;
+  if (live)
+    for (int j = 0; (t >> j) != 0; ++j)
+      if ((t >> j) & 1)
+        xm = bb::mmul(xm, static_cast<uint32_t>(a.gens[H.log_h - j]));
+  Ext d[MAX_SLOTS], pre[MAX_SLOTS];
+  bool zero[MAX_SLOTS];
+  Ext run = one;
+#pragma unroll
+  for (int j = 0; j < MAX_SLOTS; ++j) {
+    d[j] = one;
+    zero[j] = false;
+    if (live && j < ns) {
+      const Ext z = ext_at(H.z, j);
+      d[j] = Ext{{bb::msub(xm, z.c[0]), bb::mneg(z.c[1]), bb::mneg(z.c[2]),
+                  bb::mneg(z.c[3])}};
+      zero[j] = (d[j].c[0] | d[j].c[1] | d[j].c[2] | d[j].c[3]) == 0u;
+      if (zero[j]) d[j] = one;
+    }
+    pre[j] = run;
+    if (j < ns) run = bb::ext_mmul(run, d[j]);
+  }
+  // each lane's exclusive prefix and suffix products over the lanes of
+  // its warp
+  Ext inc = run, suf = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const Ext y = shfl_up_ext(inc, o), u = shfl_down_ext(suf, o);
+    if (lane >= o) inc = bb::ext_mmul(inc, y);
+    if (lane + o < 32) suf = bb::ext_mmul(suf, u);
+  }
+  Ext before = shfl_up_ext(inc, 1), after = shfl_down_ext(suf, 1);
+  if (lane == 0) before = one;
+  if (lane == 31) after = one;
+  if (lane == 31) tot[warp] = uint4_of(inc);
+  rows_sync();
+  if (warp == 0 && lane < ROW_WARPS) {
+    // fac[w] = (the item's product)^-1 * the other warps' products
+    Ext total = one, others = one;
+#pragma unroll
+    for (int w = 0; w < ROW_WARPS; ++w) {
+      total = bb::ext_mmul(total, ext_of(tot[w]));
+      if (w != lane) others = bb::ext_mmul(others, ext_of(tot[w]));
+    }
+    fac[lane] = uint4_of(bb::ext_mmul(bb::ext_minv(total), others));
+  }
+  rows_sync();
+  if (!live) return;
+  // 1 / run, then each slot's 1 / (x - z) from the back, times its
+  // numerator less y_alpha: canonical
+  Ext inv = bb::ext_mmul(bb::ext_mmul(ext_of(fac[warp]), before), after);
+  Ext sum = bb::ext_zero();
+  const uint4* mine = reinterpret_cast<const uint4*>(num) + t * MAX_SLOTS;
+#pragma unroll
+  for (int j = MAX_SLOTS - 1; j >= 0; --j) {
+    if (j >= ns) continue;
+    Ext ij = bb::ext_mmul(inv, pre[j]);
+    inv = bb::ext_mmul(inv, d[j]);
+    if (zero[j]) ij = bb::ext_zero();
+    sum = bb::ext_madd(sum, bb::ext_mmul(bb::ext_msub(ext_of(mine[j]),
+                                                       ext_at(H.ya, j)),
+                                         ij));
+  }
+  const long long row = r0 + t;
+  if (H.add)
+    sum = bb::ext_madd(sum, ext_of(reinterpret_cast<const uint4*>(H.add)[row]));
+  reinterpret_cast<uint4*>(H.out)[row] = uint4_of(sum);
+}
+
+// Row items, REDUCE_ROWS rows of one height each, every chunk of the
+// height, from `ticket` on: the block draws its next ticket while it
+// streams an item, and issues the next item's first stages before it
+// finishes the last one's rows, so that the copies run under the
+// epilogue.
+__device__ void reduce_rows(const ReduceArgs& a, int ticket,
+                            uint32_t* smem) {
+  uint32_t* ring = smem;                              // stages of LDE rows
+  uint32_t* wb = ring + REDUCE_STAGES * RSTAGE_WORDS;  // their weight planes
+  uint4* tot = reinterpret_cast<uint4*>(wb + REDUCE_STAGES * WB_WORDS);
+  uint4* fac = tot + REDUCE_WARPS;                    // (REDUCE_WARPS,)
+  // the numerators, (REDUCE_ROWS, MAX_SLOTS, 4) canonical, in the last
+  // stage's place: the next item's first stages take the others
+  uint32_t* num = ring + (REDUCE_STAGES - 1) * RSTAGE_WORDS;
+  __shared__ int stiles[REDUCE_STAGES];              // each stage's n-tiles
+  __shared__ int next_ticket;
+  __shared__ uint32_t xr0;                           // x of the first row
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, tig = lane & 3;
+
+  // every weight ticket was drawn before this block's first row ticket:
+  // wait for their planes (they run, and wait for nothing)
+  if (t == 0) {
+    while (*reinterpret_cast<volatile int*>(a.ctr + 1) < a.wblocks)
+      __nanosleep(256);
+    __threadfence();
+  }
+  __syncthreads();
+
+  // the item's place
+  const ReduceHeight* H = nullptr;
+  long long r0 = 0;
+  int rows = 0, nch = 0, ns = 0;
+  const ReduceChunk* chunks = nullptr;
+  const uint32_t* wts = nullptr;
+  auto place = [&](int item) {
+    int hi = 0;
+    while (hi + 1 < a.n_heights && a.heights[hi + 1].first_block <= item)
+      ++hi;
+    H = a.heights + hi;
+    r0 = (item - H->first_block) * REDUCE_ROWS;
+    rows = static_cast<int>(min(static_cast<long long>(REDUCE_ROWS),
+                                (1LL << H->log_h) - r0));
+    nch = static_cast<int>(H->chunks);
+    ns = static_cast<int>(H->n_slots);
+    chunks = a.chunks + H->first_chunk;
+    wts = a.wts + H->first_chunk * WB_WORDS;
+  };
+  auto source = [&](int s) {
+    const ReduceChunk& C = chunks[s];
+    return Src{C.lde + r0 * C.ld + C.c0, C.ld,
+               static_cast<int>(min(static_cast<long long>(REDUCE_COLS),
+                                    C.w - C.c0)),
+               static_cast<int>(C.vec), static_cast<int>(C.tiles)};
+  };
+  // stage s: chunk s's REDUCE_COLS columns of the block's rows (zero past
+  // the height's rows and the group's columns), in copies of S.vec words,
+  // and the weight planes of the n-tiles its segments use (the others are
+  // zero: their MMAs are skipped), 16 bytes a thread
+  auto issue = [&](int s, const Src& S) {
+    if (s < nch) {
+      uint32_t* buf = ring + (s % REDUCE_STAGES) * RSTAGE_WORDS;
+      if (S.vec == 4) {
+        for (int e = t; e < REDUCE_ROWS * 8; e += REDUCE_THREADS) {
+          const int row = e >> 3, q = e & 7;
+          const int n = row < rows ? max(0, min(4, S.cols - 4 * q)) : 0;
+          cp_async16(buf + r_word(row, q), n ? S.base + row * S.ld + 4 * q
+                                             : S.base, 4 * n);
+        }
+      } else if (S.vec == 2) {
+        for (int e = t; e < REDUCE_ROWS * 16; e += REDUCE_THREADS) {
+          const int row = e >> 4, col = 2 * (e & 15);
+          const int n = row < rows ? max(0, min(2, S.cols - col)) : 0;
+          cp_async8(buf + r_word(row, col >> 2) + (col & 3),
+                    n ? S.base + row * S.ld + col : S.base, 4 * n);
+        }
+      } else {
+        for (int e = t; e < RSTAGE_WORDS; e += REDUCE_THREADS) {
+          const int row = e >> 5, col = e & 31;
+          const bool live = row < rows && col < S.cols;
+          cp_async4(buf + r_word(row, col >> 2) + (col & 3),
+                    live ? S.base + row * S.ld + col : S.base,
+                    live ? 4 : 0);
         }
       }
+      if (t < S.tiles * (WB_WORDS / N_TILES / 4))
+        cp_async16(wb + (s % REDUCE_STAGES) * WB_WORDS + 4 * t,
+                   wts + static_cast<long long>(s) * WB_WORDS + 4 * t, 16);
+      if (t == 0) stiles[s % REDUCE_STAGES] = S.tiles;
     }
-  }
-  if (t >= rows) return;
-  const long long row = r0 + t;
-  const uint32_t xm = bb::mmul(static_cast<uint32_t>(a.x0),
-                               mpow(static_cast<uint32_t>(a.g), row));
-  Ext sum = bb::ext_zero();
+    cp_async_commit();
+  };
+  // an item's first stages; the next chunk's source is read an iteration
+  // ahead of its stage
+  Src next;
+  auto start = [&]() {
+    next = source(0);
 #pragma unroll
-  for (int k = 0; k < NP; ++k) {
-    const Ext f{{bb::redc(acc[k][0]), bb::redc(acc[k][1]),
-                 bb::redc(acc[k][2]), bb::redc(acc[k][3])}};  // canonical
-    const Ext z = ext_at(a.z, k);
-    const Ext d{{bb::msub(xm, z.c[0]), bb::mneg(z.c[1]), bb::mneg(z.c[2]),
-                 bb::mneg(z.c[3])}};                         // x - z
-    // canonical numerator times a Montgomery inverse: canonical
-    sum = bb::ext_madd(sum, bb::ext_mmul(bb::ext_msub(f, ext_at(a.ya, k)),
-                                         bb::ext_minv(d)));
+    for (int s = 0; s < REDUCE_STAGES - 1; ++s) {
+      issue(s, next);
+      if (s + 1 < nch) next = source(s + 1);
+    }
+  };
+  place(ticket - static_cast<int>(a.wblocks));
+  start();
+
+  while (true) {
+    // the ticket after this item's, drawn while it streams
+    int drawn = 0;
+    if (t == 0) drawn = atomicAdd(a.ctr, 1);
+    // acc[a + b][nt]: byte plane a of the LDE times byte plane b of the
+    // weights, for the warp's 16 rows and n-tile nt (slots 2 nt, 2 nt + 1
+    // by 4 limbs), summed in s32 over at most FLUSH_CHUNKS stages; part:
+    // the canonical sums of the flushed stages
+    int acc[7][N_TILES][4];
+    uint32_t part[N_TILES][4];
+#pragma unroll
+    for (int nt = 0; nt < N_TILES; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        part[nt][r] = 0u;
+#pragma unroll
+        for (int x = 0; x < 7; ++x) acc[x][nt][r] = 0;
+      }
+    auto flush = [&]() {
+#pragma unroll
+      for (int nt = 0; nt < N_TILES; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          uint64_t sum = 0;
+#pragma unroll
+          for (int x = 0; x < 7; ++x) {
+            sum = bb::fold_hi(sum + bb::wide(bb::reduce1(
+                                                 static_cast<uint32_t>(
+                                                     acc[x][nt][r])),
+                                             SHIFT_M[x]));
+            acc[x][nt][r] = 0;
+          }
+          part[nt][r] = bb::madd(part[nt][r], bb::redc(sum));
+        }
+    };
+    const bool busy = 16 * warp < rows;
+    int since = 0;
+    for (int s = 0; s < nch; ++s) {
+      cp_async_wait<REDUCE_STAGES - 2>();
+      __syncthreads();  // stage s in place; stage s - 1 consumed
+      issue(s + REDUCE_STAGES - 1, next);
+      if (s + REDUCE_STAGES < nch) next = source(s + REDUCE_STAGES);
+      if (busy) {
+        const uint32_t* buf = ring + (s % REDUCE_STAGES) * RSTAGE_WORDS;
+        const uint32_t* wbs = wb + (s % REDUCE_STAGES) * WB_WORDS;
+        const int tiles = stiles[s % REDUCE_STAGES];
+        // A: rows g, g + 8 of the warp's 16 by columns 4 tig (+ 16): four
+        // words of a row, byte-transposed into the four planes' registers
+        uint32_t af[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint4 v = *reinterpret_cast<const uint4*>(
+              buf + r_word(16 * warp + g + 8 * (i & 1), tig + 4 * (i >> 1)));
+          uint32_t o[4];
+          transpose4(v.x, v.y, v.z, v.w, o);
+#pragma unroll
+          for (int x = 0; x < 4; ++x) af[x][i] = o[x];
+        }
+#pragma unroll
+        for (int nt = 0; nt < N_TILES; ++nt) {
+          if (nt >= tiles) break;
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const uint2 bv = *reinterpret_cast<const uint2*>(
+                wbs + wb_word(nt, b, g, tig));
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+              mma_u8(acc[x + b][nt], af[x], bv.x, bv.y);
+          }
+        }
+      }
+      if (++since == FLUSH_CHUNKS) {
+        flush();
+        since = 0;
+      }
+    }
+    cp_async_wait<0>();
+    flush();
+    __syncthreads();  // every warp is past its last stage: the ring is free
+
+    // D's register r: row g + 8 (r / 2), slot 2 nt + tig / 2, limb
+    // 2 (tig % 2) + r % 2
+#pragma unroll
+    for (int nt = 0; nt < N_TILES; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = 16 * warp + g + 8 * (r >> 1);
+        const int j = 2 * nt + (tig >> 1), l = 2 * (tig & 1) + (r & 1);
+        num[(row * MAX_SLOTS + j) * 4 + l] = part[nt][r];
+      }
+    if (t == 0) {
+      next_ticket = drawn;
+      // x of the item's first row: GENERATOR * g^r0 from the table of
+      // generators, g^(2^j) = g_(log_h - j), no squarings
+      uint32_t x = static_cast<uint32_t>(a.x0);
+      for (int j = 0; (r0 >> j) != 0; ++j)
+        if ((r0 >> j) & 1)
+          x = bb::mmul(x, static_cast<uint32_t>(a.gens[H->log_h - j]));
+      xr0 = x;
+    }
+    __syncthreads();
+    // this item's place, for its epilogue; then the next item's first
+    // stages, in flight under it
+    const ReduceHeight* const Hc = H;
+    const long long rc = r0;
+    const int rows_c = rows, ns_c = ns;
+    const uint32_t x0 = xr0;
+    const int item = next_ticket - static_cast<int>(a.wblocks);
+    const bool more = item < a.blocks;
+    if (more) {
+      place(item);
+      start();
+    }
+    if (warp < ROW_WARPS)
+      reduce_epilogue(a, *Hc, rc, rows_c, ns_c, x0, num, tot, fac);
+    if (!more) break;
   }
-  uint4* out = reinterpret_cast<uint4*>(a.out) + row;
-  if (a.accumulate) sum = bb::ext_madd(sum, ext_of(*out));
-  *out = uint4_of(sum);
+}
+
+// Each block draws tickets until they run out: the first wblocks make the
+// weight planes, the rest are row items; the last block to finish sets
+// the counters back to zero, so the same arguments may be launched again.
+__global__ void __launch_bounds__(REDUCE_THREADS, 4)
+    open_reduce_kernel(const ReduceArgs a) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ int ticket;
+  while (true) {
+    if (threadIdx.x == 0) ticket = atomicAdd(a.ctr, 1);
+    __syncthreads();
+    const int mine = ticket;
+    __syncthreads();  // every thread has read it
+    if (mine >= a.wblocks) {
+      if (mine < a.wblocks + a.blocks) reduce_rows(a, mine, smem);
+      break;
+    }
+    make_weights(a, mine, smem);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 &&
+      atomicAdd(a.ctr + 2, 1) == static_cast<int>(gridDim.x) - 1) {
+    a.ctr[0] = 0;
+    a.ctr[1] = 0;
+    a.ctr[2] = 0;
+  }
 }
 
 __global__ void __launch_bounds__(FOLD_THREADS)
@@ -559,32 +1032,23 @@ __global__ void __launch_bounds__(FOLD_THREADS)
 
 using lurk::on_device;
 
-// Launches k1(a) or k2(a), the kernel of the args' point count: a group's
-// matrices open at zeta and zeta * g, or at one point.
-template <typename Args>
-int launch_points(long long n, void (*k1)(Args), void (*k2)(Args),
-                  dim3 grid, dim3 block, cudaStream_t s, const Args& a) {
-  if (n != 1 && n != 2) return static_cast<int>(cudaErrorInvalidValue);
-  void (*kernel)(Args) = n == 1 ? k1 : k2;
-  kernel<<<grid, block, 0, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
+// Bit d of `ready`: `kernel` may take `smem` bytes of dynamic shared
+// memory on device d. Set once per device and kernel, never per launch:
+// host threads launch at once (parallel/shard_prover.py).
+std::atomic<unsigned long long> eval_ready{0}, reduce_ready{0};
 
-// Bit d: open_eval_kernel may take EVAL_SMEM bytes of dynamic shared
-// memory on device d. Set once per device, never per launch: host threads
-// launch at once (parallel/shard_prover.py).
-std::atomic<unsigned long long> eval_ready{0};
-
-cudaError_t configure_eval() {
+template <typename Kernel>
+cudaError_t configure(Kernel kernel, int smem,
+                      std::atomic<unsigned long long>& ready) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const unsigned long long bit = dev < 64 ? 1ULL << dev : 0ULL;
-  if (eval_ready.load() & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(open_eval_kernel,
+  if (ready.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             EVAL_SMEM);
-  if (err == cudaSuccess) eval_ready.fetch_or(bit);
+                             smem);
+  if (err == cudaSuccess) ready.fetch_or(bit);
   return err;
 }
 
@@ -610,7 +1074,7 @@ int lurk_open_eval(int device, const void* args, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&]() -> int {
-    cudaError_t err = configure_eval();
+    cudaError_t err = configure(open_eval_kernel, EVAL_SMEM, eval_ready);
     if (err != cudaSuccess) return static_cast<int>(err);
     open_eval_kernel<<<static_cast<unsigned>(a.blocks), EVAL_THREADS,
                        EVAL_SMEM, s>>>(a);
@@ -618,21 +1082,36 @@ int lurk_open_eval(int device, const void* args, void* stream) {
   });
 }
 
-// One group's reduced openings added into (or, with accumulate = 0,
-// written to)
-// args->out (a ReduceArgs): 2^log_big / REDUCE_ROWS blocks of REDUCE_ROWS
-// threads. Launches as lurk_open_eval does.
+// The reduced codeword of every height of args (a ReduceArgs), written to
+// each height's out (plus its add, where not null), in one launch of as
+// many blocks of REDUCE_THREADS threads as the device holds at once (at
+// most one a ticket: args->wblocks + args->blocks). Launches as
+// lurk_open_eval does.
 int lurk_open_reduce(int device, const void* args, void* stream) {
   const ReduceArgs& a = *static_cast<const ReduceArgs*>(args);
-  if (a.w < 1 || a.log_big < 0 || a.log_big > 30)
+  if (a.n_heights < 1 || a.blocks < 1 || a.n_chunks < 1 ||
+      a.wblocks != (a.n_chunks + WEIGHT_CHUNKS - 1) / WEIGHT_CHUNKS ||
+      a.seg_w < 1 || a.seg_w > MAX_SEG_W ||
+      a.wblocks + a.blocks > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long big = 1LL << a.log_big;
-  const dim3 grid(static_cast<unsigned>((big + REDUCE_ROWS - 1) / REDUCE_ROWS));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&]() -> int {
-    return launch_points(a.n_points, open_reduce_kernel<1>,
-                         open_reduce_kernel<2>, grid, dim3(REDUCE_ROWS), s,
-                         a);
+    cudaError_t err = configure(open_reduce_kernel, REDUCE_SMEM,
+                                reduce_ready);
+    int dev = 0, sms = 0, per_sm = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, open_reduce_kernel, REDUCE_THREADS, REDUCE_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // as many blocks as the card holds at once, each drawing tickets
+    const long long grid = min(a.wblocks + a.blocks,
+                               static_cast<long long>(max(1, sms * per_sm)));
+    open_reduce_kernel<<<static_cast<unsigned>(grid), REDUCE_THREADS,
+                         REDUCE_SMEM, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
   });
 }
 

@@ -12,9 +12,9 @@ constraint_quotient kernel. Totals over the chips on the device path:
 padded main cells, perm cells, the launches of the kernels of
 stark/quotient_kernel.py and stark/open_kernel.py per prove on a card
 (constraint_quotient: one per chip, over all its LDE rows;
-logup_perm_phi: one per chip with interactions; open_eval: one per
-shard, for every height group of its rounds; open_reduce: one per height
-group of each round; fri_fold: one per FRI layer above the host tail),
+logup_perm_phi: one per chip with interactions; open_eval and
+open_reduce: one each per shard, for every height group of its rounds;
+fri_fold: one per FRI layer above the host tail),
 and beside them the eager torch launches the plain constraint VM
 dispatches per prove (two per instruction and chunk: the operation and
 its reduction), which is what a card ran before the kernels. These are
@@ -27,14 +27,16 @@ import argparse
 import sys
 
 
-def open_groups(machine, queries, shard_config) -> list:
+def open_groups(machine, queries, shard_config, matrices: bool = False
+                ) -> list:
     """Per shard, the (round, log2 height, width, opening points) of every
     height group that device_open_rounds opens: the preprocessed round's
     groups (the machine's preprocessed traces), then the main, perm and
     quotient rounds' (one group per trace height of the shard's chips).
     Main, perm and preprocessed matrices open at zeta and zeta * g (one
     point where g = 1, at height 1; a preprocessed matrix whose chip is
-    not in the shard at zeta alone), quotient chunks at zeta^2."""
+    not in the shard at zeta alone), quotient chunks at zeta^2. With
+    `matrices`, the width is the list of the group's matrix widths."""
     from .lair.chips import chip_included, chip_preprocessed
     from .lair.execute import Shard
     from .lair.trace import next_power_of_two
@@ -49,8 +51,8 @@ def open_groups(machine, queries, shard_config) -> list:
         groups: dict = {}
 
         def add(rnd, lh, width, n_points):
-            w, n = groups.get((rnd, lh), (0, 0))
-            groups[(rnd, lh)] = (w + width, max(n, n_points))
+            ws, n = groups.get((rnd, lh), ([], 0))
+            groups[(rnd, lh)] = (ws + [width], max(n, n_points))
 
         for name, (rows, width) in preps:
             lh = (rows - 1).bit_length()
@@ -62,8 +64,8 @@ def open_groups(machine, queries, shard_config) -> list:
             add("perm", lh, perm_trace_width(builder), 2 if lh else 1)
             add("quotient", lh, 8, 1)
         order = ("preprocessed", "main", "perm", "quotient")
-        out.append(sorted(((r, lh, w, n) for (r, lh), (w, n)
-                           in groups.items()),
+        out.append(sorted(((r, lh, ws if matrices else sum(ws), n)
+                           for (r, lh), (ws, n) in groups.items()),
                           key=lambda g: (order.index(g[0]), -g[1])))
     return out
 
@@ -73,9 +75,8 @@ def kernel_launches(machine, queries, shard_config) -> dict:
     stark/open_kernel.py that a prove of `queries` at `shard_config` makes
     on a card: one constraint_quotient per chip on the device path of
     every shard, one logup_perm_phi per such chip with interactions; one
-    open_eval per shard (all of its height groups at once); one
-    open_reduce per height group of every round of every shard; one
-    fri_fold per FRI layer above the host tail
+    open_eval and one open_reduce per shard (all of its height groups at
+    once); one fri_fold per FRI layer above the host tail
     (device_prover._fri_host_tail_log) of every shard."""
     from .lair.chips import chip_included
     from .lair.execute import Shard
@@ -90,8 +91,7 @@ def kernel_launches(machine, queries, shard_config) -> dict:
                 out["logup_perm_phi"] += \
                     bool(machine.builder_for(chip).interactions)
     groups = open_groups(machine, queries, shard_config)
-    out["open_eval"] = sum(1 for g in groups if g)
-    out["open_reduce"] = sum(map(len, groups))
+    out["open_eval"] = out["open_reduce"] = sum(1 for g in groups if g)
     floor = max(dp._fri_host_tail_log(), machine.config.log_blowup)
     out["fri_fold"] = sum(max(0, max(lh for _, lh, _, _ in g)
                               + dp.LOG_BLOWUP - floor) for g in groups)

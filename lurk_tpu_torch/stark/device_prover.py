@@ -1257,7 +1257,7 @@ def device_open_rounds(rounds: List[DRound],
     (exact mod-p sums are order-insensitive)."""
     from ..field import ext_np as E_np
     from . import merkle as host_merkle
-    from .open_kernel import open_eval_groups, open_reduce
+    from .open_kernel import open_eval_groups, open_reduce_groups
 
     # opened values: evaluate each group's coefficient concat at the union
     # of its matrices' points, every group of every round in one
@@ -1281,7 +1281,7 @@ def device_open_rounds(rounds: List[DRound],
                               for row in joined[off:off + w].tolist()]
         off += w
 
-    opened = []
+    opened, values = [], []
     for ri, (rnd, rnd_points) in enumerate(zip(rounds, points)):
         rv = [[None] * len(pts) for pts in rnd_points]
         for gi, (log_h, idxs) in enumerate(rnd.groups):
@@ -1302,10 +1302,12 @@ def device_open_rounds(rounds: List[DRound],
                     flat.extend(y)
         challenger.observe_many(flat)      # one absorb call per round
         opened.append(rv)
+        values.extend(flat)
 
     alpha = challenger.sample_ext()
 
-    # alpha-power offsets in host (round, mat, point) order
+    # alpha-power offsets in host (round, mat, point) order: the place of
+    # the (round, mat, point)'s first opened value in transcript order
     offsets: Dict[tuple, int] = {}
     alpha_cnt = 0
     for ri, (rnd, rnd_points) in enumerate(zip(rounds, points)):
@@ -1314,41 +1316,41 @@ def device_open_rounds(rounds: List[DRound],
             for pi in range(len(pts)):
                 offsets[(ri, mi, pi)] = alpha_cnt
                 alpha_cnt += w
+    # every opened value times its alpha power in one vectorised pass;
+    # y_alpha of a (round, mat, point) is a difference of running sums
+    apows = host_pcs.ext_powers(alpha, alpha_cnt)
+    run = np.zeros((alpha_cnt + 1, 4), np.uint64)
+    if alpha_cnt:
+        ys = np.asarray(values, np.uint64).reshape(-1, 4)
+        np.cumsum(E_np.emul(ys, apows), axis=0, out=run[1:])
 
-    ro: Dict[int, torch.Tensor] = {}
-    inv_xz_cache: Dict[tuple, torch.Tensor] = {}   # the plain version's
-    for ri, (rnd, rnd_points, rnd_opened) in enumerate(
-            zip(rounds, points, opened)):
+    # per group: its LDE, its points, a weight segment (k, first column,
+    # width, alpha^o) a matrix and point (duplicate points of a matrix
+    # fold in as summed segments: (f*a1 - y1)/(x-z) + (f*a2 - y2)/(x-z)
+    # == (f*(a1+a2) - (y1+y2))/(x-z)) and y_alpha per point; the
+    # kernel makes the weights and reduces every group in one launch
+    groups = []
+    for ri, (rnd, rnd_points) in enumerate(zip(rounds, points)):
         for gi, (log_h, idxs) in enumerate(rnd.groups):
-            log_H = log_h + LOG_BLOWUP
-            lde = rnd.trees[gi][1].concat              # (H, W_total)
-            W_total = int(lde.shape[1])
             zs = _group_points(rnd, rnd_points, idxs)
-            # alpha-power weights for every participating matrix, per
-            # point (zeros elsewhere: zero weight = excluded)
-            weights = np.zeros((len(zs), W_total, 4), np.uint64)
+            segments = []
             y_alpha = np.zeros((len(zs), 4), np.uint64)
-            for k, z in enumerate(zs):
-                off = 0
-                for i in idxs:
-                    w = rnd.widths[i]
-                    # duplicate points fold in as summed weight segments:
-                    # (f*a1 - y1)/(x-z) + (f*a2 - y2)/(x-z)
-                    #   == (f*(a1+a2) - (y1+y2))/(x-z)
-                    for pi, zp in enumerate(rnd_points[i]):
-                        if zp != z:
-                            continue
-                        apows = host_pcs.ext_powers_from(
-                            alpha, offsets[(ri, i, pi)], w)
-                        weights[k, off:off + w] = \
-                            (weights[k, off:off + w] + apows) % np.uint64(P)
-                        ys_arr = np.asarray(rnd_opened[i][pi], np.uint64)
-                        ya = E_np.emul(ys_arr, apows).sum(axis=0) \
-                            % np.uint64(P)
-                        y_alpha[k] = (y_alpha[k] + ya) % np.uint64(P)
-                    off += w
-            ro[log_H] = open_reduce(ro.get(log_H), lde, zs, weights,
-                                    y_alpha, inv_xz_cache)
+            off = 0
+            for i in idxs:
+                w = rnd.widths[i]
+                for pi, zp in enumerate(rnd_points[i]):
+                    o = offsets[(ri, i, pi)]
+                    k = zs.index(zp)
+                    if w:
+                        segments.append((k, off, w, tuple(
+                            int(v) for v in apows[o])))
+                    y_alpha[k] = (y_alpha[k] + run[o + w] - run[o]) % \
+                        np.uint64(P)
+                off += w
+            groups.append((rnd.trees[gi][1].concat, zs, segments, y_alpha))
+    ro: Dict[int, torch.Tensor] = {}
+    if groups:
+        ro = open_reduce_groups(groups, alpha)
 
     t0 = _tlog("    reduced codewords (dispatch)", t0)
     fri_proof, _layer_trees = device_fri_prove(ro, config, challenger)

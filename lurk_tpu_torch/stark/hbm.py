@@ -202,20 +202,28 @@ def _open_transient(groups: List[Tuple[int, int]], cuda: bool) -> int:
     64-bit accumulators (at most two points: 96 B a column) and its packed
     tables (z^(2^j) for each point: 1,024 B a group; a record and a
     counter a column tile: 92 B; the block -> tile map: 4 B a block)
-    alive together; a group's staged open_reduce weights (32 B a column);
-    and the reduced codewords, one (2h, 4) int32 per height, all alive
-    until FRI. On the CPU: one _open_rows block of a group's coefficients
-    or LDE and its products in int64, and the group's reduced codewords."""
+    alive together; open_reduce's one launch, its packed tables (a
+    ReduceHeight, 312 B a height; a ReduceChunk, 64 B a group's 32
+    columns, and the chunk's weight planes, 2,048 B; ReduceSeg records
+    of 56 B, at most two points' for every chunk and every matrix of a
+    column or more: 112 B a chunk and a column; 16 B of counters); and
+    the reduced codewords, one (2h, 4) int32 per height, all alive until
+    FRI. On the CPU: one _open_rows block of a group's coefficients or LDE
+    and its products in int64, and the group's reduced codewords."""
     from .device_prover import LDE_CHUNK_CELLS
     if not groups:
         return 0
     if cuda:
-        from .open_kernel import ITEM_ROWS, column_tiles
+        from .open_kernel import ITEM_ROWS, REDUCE_COLS, column_tiles
         tables = sum(1024 + len(column_tiles(w))
                      * (92 + 4 * -(-h // ITEM_ROWS)) for h, w in groups)
-        return sum(96 * w for _, w in groups) + tables + \
-            max(32 * w for _, w in groups) + \
-            32 * sum({h for h, _ in groups})
+        heights = {h for h, _ in groups}
+        chunks = [-(-w // REDUCE_COLS) for _, w in groups]
+        reduce_tables = 312 * len(heights) + 16 + sum(
+            (64 + 2048) * c + 112 * (c + w)
+            for c, (_, w) in zip(chunks, groups))
+        return sum(96 * w for _, w in groups) + tables + reduce_tables + \
+            32 * sum(heights)
     return max(24 * min(2 * h * w, LDE_CHUNK_CELLS) + 256 * h
                for h, w in groups)
 

@@ -6,11 +6,12 @@ perm-trace kernels (stark/quotient_kernel.py) against their plain
 versions on every plan chip of golden.LURK_PROGRAM, direct and compiled,
 and the Lurk golden proof through them; the PCS-opening and FRI-fold
 kernels (stark/open_kernel.py) against their plain versions at heights
-2^1 to 2^19 and widths 1 to 300, open_eval over every height group of
-fib(100000)'s shard 0 in one launch (and an all-(p - 1) column of 2^15 +
-3 rows), from three threads at once in a fresh process, in
-device_open_rounds (a repeated point) and in the Lurk golden proof. Every
-test skips without a card.
+2^1 to 2^19 and widths 1 to 300, open_eval and open_reduce over every
+height group of fib(100000)'s shard 0 in one launch each (and an
+all-(p - 1) column of 2^15 + 3 rows, an all-(p - 1) group wider than
+open_reduce's s32 sums), from three threads at once in a fresh process,
+in device_open_rounds (a repeated point) and in the Lurk golden proof.
+Every test skips without a card.
 
 This file imports no jax (the card's machine has none), so it runs there
 without tests/conftest.py:
@@ -377,29 +378,56 @@ def test_open_eval_kernel_matches_plain(cuda, log_h, w):
 @pytest.mark.parametrize("log_big", [1, 12, 17])
 @pytest.mark.parametrize("w", [1, 7, 300])
 def test_open_reduce_kernel_matches_plain(cuda, log_big, w):
-    """Into a new codeword and into a given one; the second point of the
-    two-point case is the domain's x at row 1 (x - z = 0 there)."""
-    from lurk_tpu_torch.stark import open_kernel as ok
+    """open_reduce_groups into new codewords and into given ones: at
+    log_big, a slice of an odd-stride matrix with dense weights (the
+    one-group open_reduce) beside a contiguous group with weights from
+    alpha^o segments (matrices of w and w // 2 + 1 columns, the first at
+    two points, the second at its second point twice) and a third group
+    at zeta^2, so the height has three distinct points; one launch. The
+    second point is the domain's x at row 1 (x - z = 0 there)."""
+    from lurk_tpu_torch.field import ext as ext_t
     from lurk_tpu_torch.field.ntt import GENERATOR
+    from lurk_tpu_torch.stark import open_kernel as ok
     rng = np.random.default_rng(40 + log_big + w)
     big = 1 << log_big
     lde, = _odd_stride_slices(rng, big, [w], cuda)
     x1 = GENERATOR * bb.two_adic_generator_s(log_big) % bb.P
-    for zs in (_special_points(rng, 1), [_ext(rng), (x1, 0, 0, 0)]):
-        weights = rng.integers(0, bb.P, (len(zs), w, 4))
+    alpha, zeta = _ext(rng), _ext(rng)
+    w2 = w // 2 + 1
+    contiguous = torch.from_numpy(rng.integers(0, bb.P, (big, w + w2))
+                                  .astype(np.int32)).to(cuda)
+    segs = [(0, 0, w, ext_t.epow_s(alpha, 3)), (1, 0, w, alpha),
+            (1, w, w2, ext_t.epow_s(alpha, 5)),
+            (1, w, w2, ext_t.epow_s(alpha, 900))]
+    zs = [zeta, (x1, 0, 0, 0)]
+    zeta2 = [ext_t.emul_s(zeta, zeta)]
+    for zsd in (_special_points(rng, 1), [_ext(rng), (x1, 0, 0, 0)]):
+        weights = rng.integers(0, bb.P, (len(zsd), w, 4))
         weights[0, 0] = (0, 1, bb.P - 1, 1 << 30)
-        y_alpha = rng.integers(0, bb.P, (len(zs), 4))
+        y_alpha = rng.integers(0, bb.P, (len(zsd), 4))
         for ro in (None, torch.from_numpy(rng.integers(
                 0, bb.P, (big, 4)).astype(np.int32)).to(cuda)):
             want = ok.reduce_plain(None if ro is None else ro.clone(), lde,
-                                   zs, weights, y_alpha)
+                                   zsd, weights, y_alpha)
             before = ok.open_reduce.launches
-            got = ok.open_reduce(ro, lde, zs, weights, y_alpha)
+            got = ok.open_reduce(ro, lde, zsd, weights, y_alpha)
             assert ok.open_reduce.launches == before + 1
             torch.cuda.synchronize()
             assert ro is None or got is ro
             assert got.dtype == torch.int32 and tuple(got.shape) == (big, 4)
-            assert torch.equal(got, want), (log_big, w, len(zs))
+            assert torch.equal(got, want), (log_big, w, len(zsd))
+            groups = [(contiguous, zs, segs, rng.integers(0, bb.P, (2, 4))),
+                      (lde, zeta2, [(0, 0, w, ext_t.epow_s(alpha, 7))],
+                       rng.integers(0, bb.P, (1, 4)))]
+            given = None if ro is None else {log_big: ro.clone()}
+            want = ok.reduce_groups_plain(
+                groups, alpha, None if ro is None else {log_big: ro})
+            before = ok.open_reduce.launches
+            got = ok.open_reduce_groups(groups, alpha, given)
+            assert ok.open_reduce.launches == before + 1
+            torch.cuda.synchronize()
+            assert list(got) == [log_big]
+            assert torch.equal(got[log_big], want[log_big]), (log_big, w)
 
 
 @pytest.mark.parametrize("log_n", [2, 12, 19])
@@ -479,6 +507,51 @@ def test_grouped_open_eval_matches_plain_at_shard0_shapes(cuda):
             (tuple(coeffs.shape), len(zs))
         off += rows
     assert off == len(want) and torch.equal(again, want)
+
+
+def test_grouped_open_reduce_matches_plain_at_shard0_shapes(cuda):
+    """open_reduce_groups over every height group of fib(100000)'s shard
+    0 (25 groups, 8 heights of 2^1 to 2^19 rows, contiguous LDEs of 6 to
+    663 columns, the prover's points: zeta and zeta * g, zeta^2 for the
+    quotient round, one matrix a group with its alpha^o segments) and an
+    all-(p - 1) group of 2 rows wider than FLUSH_CHUNKS chunks with a
+    point on the domain: one launch, each height bit-equal to the plain
+    version, and the same arguments launched again give the same
+    values."""
+    from lurk_tpu_torch.field import ext as ext_t
+    from lurk_tpu_torch.field.ntt import GENERATOR
+    from lurk_tpu_torch.stark import open_kernel as ok
+    rng = np.random.default_rng(61)
+    alpha, zeta = _ext(rng), _ext(rng)
+    groups, o = [], 0
+    for rnd, log_h, w, n in _shard0_groups():
+        g = bb.two_adic_generator_s(log_h) if log_h else 1
+        zs = [ext_t.emul_s(zeta, zeta)] if rnd == "quotient" else \
+            [zeta, ext_t.emul_s(zeta, (g, 0, 0, 0))][:n]
+        segs = []
+        for k in range(len(zs)):
+            segs.append((k, 0, w, ext_t.epow_s(alpha, o)))
+            o += w
+        lde = torch.from_numpy(rng.integers(0, bb.P, (2 << log_h, w))
+                               .astype(np.int32)).to(cuda)
+        groups.append((lde, zs, segs, rng.integers(0, bb.P, (len(zs), 4))))
+    wide = ok.FLUSH_CHUNKS * ok.REDUCE_COLS + 3
+    x1 = GENERATOR * (bb.P - 1) % bb.P
+    groups.append((torch.full((2, wide), bb.P - 1, dtype=torch.int32,
+                              device=cuda),
+                   [(x1, 0, 0, 0)], [(0, 0, wide, alpha)],
+                   rng.integers(0, bb.P, (1, 4))))
+    before = ok.open_reduce.launches
+    args = ok.reduce_groups_args(groups, alpha)
+    got = {k: v.clone() for k, v in ok.launch_reduce(args).items()}
+    again = ok.launch_reduce(args)
+    assert ok.open_reduce.launches == before + 2
+    want = ok.reduce_groups_plain(groups, alpha)
+    torch.cuda.synchronize()
+    assert sorted(got) == sorted(want) and len(want) == 8
+    for lh in want:
+        assert torch.equal(got[lh], want[lh]), lh
+        assert torch.equal(again[lh], want[lh]), lh
 
 
 def test_open_kernels_reject_layouts_they_do_not_take(cuda):
@@ -613,8 +686,8 @@ def test_open_rounds_with_a_repeated_point(cuda):
                 [rnd], points, config, ch)))
     assert proofs[0] == proofs[1]
     after = [f.launches for f in (ok.open_eval, ok.open_reduce, ok.fri_fold)]
-    # one open_eval for every group of the round, one open_reduce a group
-    assert [a - b for a, b in zip(after, counts)] == [1, 3, 17]
+    # one open_eval and one open_reduce for every group of the round
+    assert [a - b for a, b in zip(after, counts)] == [1, 1, 17]
 
 
 def test_lurk_golden_through_the_open_kernels(cuda, monkeypatch):

@@ -229,16 +229,22 @@ def test_cuda_models_the_quotient_kernels_buffers(monkeypatch):
 def test_cuda_models_the_open_kernels_buffers():
     """On CUDA the open phase holds the open kernels' small buffers (every
     group's opened values, accumulators and tables at once, for open_eval's
-    one launch; a group's staged weights) and the int32 reduced codewords,
-    one (2h, 4) a height, not the plain versions' int64 row blocks, which
-    the CPU's model keeps."""
+    one launch; open_reduce's height, chunk and segment records, for its
+    one launch) and the int32 reduced codewords, one (2h, 4) a height, not
+    the plain versions' int64 row blocks, which the CPU's model keeps."""
     groups = [(1 << 18, 520), (1 << 17, 218), (1 << 18, 660), (16, 120)]
     cuda = hbm._open_transient(groups, cuda=True)
-    # tables: 1,024 B of powers a group; 92 B a column tile (5, 2, 6 and
-    # 1 tiles); 4 B a block (tiles x rows / 1,024)
+    # open_eval's tables: 1,024 B of powers a group; 92 B a column tile
+    # (5, 2, 6 and 1 tiles); 4 B a block (tiles x rows / 1,024)
     tables = 4 * 1024 + 92 * (5 + 2 + 6 + 1) + \
         4 * (5 * 256 + 2 * 128 + 6 * 256 + 1)
-    assert cuda == 96 * (520 + 218 + 660 + 120) + tables + 32 * 660 + \
+    # open_reduce's: 312 B a height (3); 64 B and 2,048 B of weight
+    # planes a 32-column chunk (17, 7, 21 and 4 chunks); 112 B a chunk
+    # and a column for the segments; 16 B of counters
+    chunks = 17 + 7 + 21 + 4
+    reduce_tables = 312 * 3 + (64 + 2048) * chunks + \
+        112 * (chunks + 520 + 218 + 660 + 120) + 16
+    assert cuda == 96 * (520 + 218 + 660 + 120) + tables + reduce_tables + \
         32 * ((1 << 18) + (1 << 17) + 16)
     assert hbm._open_transient(groups, cuda=False) > 10 * cuda
     assert hbm._open_transient([], cuda=True) == 0

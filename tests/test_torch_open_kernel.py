@@ -12,8 +12,14 @@ rows at z = (p - 1, ...), among them), reduced mod p and scaled by
 2^(8(a+b)), the 64-bit accumulators and the last block's reduction; one
 warp's K-block lane by lane (the swizzled stage, the byte transposes run
 with the source's own selectors, the MMA's fragments as the PTX ISA
-defines them). open_reduce: rows on the coset GENERATOR * <g_H>, the
-Montgomery weights and inverses, the add into the reduced codeword.
+defines them). open_reduce: the block -> height map and the height,
+chunk and segment records of a shard's groups, each block's table of
+alpha^e and each chunk's weights made from one alpha^o a segment, the
+chunk staged, the byte-plane products of one a + b summed in s32 (held
+below 2^31, past FLUSH_CHUNKS chunks among them) and reduced, the points
+shared by a height's groups, the block's batched inverse of x - z (0 for
+a zero), each height's codeword written once; one warp's stage lane by
+lane (the swizzle, the weight planes, the fragments with K = columns).
 fri_fold: 1/(2x) from the table of g^-(2^j) and steps, the next layer's
 pair matrix. On slices of wider matrices (odd row strides) holding 0, 1,
 p - 1 and values past 2^30, each interpretation equals the plain version
@@ -22,8 +28,10 @@ p - 1 and values past 2^30, each interpretation equals the plain version
 The plain versions and the interpreted packing equal lurk_tpu's jitted
 programs on JAX's CPU backend: _ext_powers_fn + _eval_coeffs_fn,
 _inv_xz_fn + _reduce_fn and _fold_fn, on the same numpy inputs, converted
-here to the Montgomery form lurk_tpu takes. The header's constants and the
-structures' field order are held to the wrapper's. Tolerances are exact.
+here to the Montgomery form lurk_tpu takes; device_open_rounds on CPU
+tensors gives lurk_tpu's host open_rounds proof. The header's constants
+and the structures' field order are held to the wrapper's. Tolerances are
+exact.
 """
 
 import re
@@ -59,9 +67,6 @@ CPU = torch.device("cpu")
 def _const(name):
     return int(re.search(r"constexpr (?:int|uint32_t) %s = (\d+)u?;" % name,
                          SOURCE).group(1))
-
-
-REDUCE_ROWS = _const("REDUCE_ROWS")
 
 
 def _field(rng, rows, width):
@@ -265,34 +270,273 @@ def interpret_eval(a):
     return a["out"].tensor
 
 
+def _recs(ptr, n, fields, arrays):
+    """n records of 8-byte words (fields in order, arrays at their
+    lengths) read back from a packed buffer."""
+    words = sum(arrays.get(f, 1) for f in fields)
+    mem, base = _mem(ptr)
+    raw = mem[base:base + 2 * words * n].view(np.int64).reshape(n, words)
+    out = []
+    for r in raw:
+        rec, i = {}, 0
+        for f in fields:
+            k = arrays.get(f, 1)
+            rec[f] = r[i:i + k].astype(U) if f in arrays else int(r[i])
+            i += k
+        out.append(rec)
+    return out
+
+
+def _tensor_at(tensors, address):
+    """The tensor among `tensors` whose data starts at `address`."""
+    hit = [t for t in tensors if t.data_ptr() == address]
+    assert hit, address
+    return hit[0]
+
+
+def reduce_tables(a):
+    """open_reduce's ReduceHeight, ReduceChunk and ReduceSeg records."""
+    heights = _recs(a["heights"], a["n_heights"], ok.HEIGHT_FIELDS,
+                    ok.RECORD_ARRAYS)
+    chunks = _recs(a["chunks"], a["n_chunks"], ok.CHUNK_FIELDS, {})
+    n_segs = max((c["first_seg"] + c["segs"] for c in chunks), default=0)
+    segs = _recs(a["segs"], n_segs, ok.SEG_FIELDS, ok.RECORD_ARRAYS)
+    return heights, chunks, segs
+
+
+def _alpha_table(apow, n):
+    """alpha^e (canonical) for e < n, from alpha^(2^j) (Montgomery) by the
+    bits of e, as a weight ticket tables them."""
+    e = np.arange(n)
+    p = np.zeros((n, 4), U)
+    p[:, 0] = 1
+    for j in range(ok.LOG_SEG):
+        p = np.where(((e >> j) & 1)[:, None] == 1, _emm(p, apow[j]), p)
+    return p
+
+
+def _chunk_weights(C, segs, ptab):
+    """(MAX_SLOTS, REDUCE_COLS, 4) canonical weights of a chunk's columns:
+    sum over its segments of the slot holding column c of a * alpha^(c -
+    c0); zero past the group's columns and for slots no segment has."""
+    W = np.zeros((ok.MAX_SLOTS, ok.REDUCE_COLS, 4), U)
+    c = C["c0"] + np.arange(ok.REDUCE_COLS)
+    for S in segs[C["first_seg"]:C["first_seg"] + C["segs"]]:
+        e = c - S["c0"]
+        hit = (e >= 0) & (e < S["w"])
+        if hit.any():
+            W[S["slot"], hit] = (W[S["slot"], hit] +
+                                 _emm(S["a"], ptab[e[hit]])) % U(P)
+    return W
+
+
+def _wb_index():
+    """(MAX_SLOTS, 8, 4, 4): the word of a chunk's weight planes that
+    holds (slot j, column word kw, limb l, byte plane b), wb_word's."""
+    j, kw, l, b = np.meshgrid(np.arange(ok.MAX_SLOTS), np.arange(8),
+                              np.arange(4), np.arange(4), indexing="ij")
+    return _wb_word(j >> 1, b, 4 * (j & 1) + l, kw)
+
+
+def make_planes(W):
+    """A chunk's (MAX_SLOTS, REDUCE_COLS, 4) weights as its WB_WORDS weight
+    planes: byte b of limb l of columns 4 kw .. 4 kw + 3 in one word (low
+    byte first), at wb_word(j / 2, b, 4 (j % 2) + l, kw)."""
+    Wb = _bytes(W)                                    # (j, col, l, b)
+    words = sum(Wb[:, r::4] << U(8 * r) for r in range(4))  # (j, kw, l, b)
+    planes = np.zeros(ok.WB_WORDS, U)
+    planes[_wb_index()] = words
+    return planes
+
+
+def read_planes(planes, nn):
+    """The (REDUCE_COLS, nn, 4) bytes B[k, n, b] a row item's MMAs read
+    from a chunk's weight planes: K row 4 kw + r, column n of n-tile n /
+    8, byte r of the word at wb_word."""
+    out = np.zeros((ok.REDUCE_COLS, nn, 4), np.int64)
+    for n in range(nn):
+        for b in range(4):
+            for kw in range(8):
+                word = int(planes[_wb_word(n // 8, b, n % 8, kw)])
+                for r in range(4):
+                    out[4 * kw + r, n, b] = (word >> (8 * r)) & 255
+    return out
+
+
+def _batch_inverse(d, zero):
+    """open_reduce's batched inverse of an item's (REDUCE_ROWS,
+    MAX_SLOTS, 4) Montgomery denominators (a zero already replaced by
+    one): each thread's running product, the exclusive prefix and suffix
+    products over its warp's lanes, each warp's factor (the inverse of
+    the item's product, taken once, times the other warps' products),
+    then each slot's inverse from the back; the inverse of a zero is 0."""
+    one = np.array([R1, 0, 0, 0], U)
+    pre = np.empty_like(d)
+    run = np.broadcast_to(one, (d.shape[0], 4)).copy()
+    for j in range(ok.MAX_SLOTS):
+        pre[:, j] = run
+        run = _emm(run, d[:, j])
+    lanes = run.reshape(-1, 32, 4)
+    before, after = np.empty_like(lanes), np.empty_like(lanes)
+    acc = np.broadcast_to(one, (len(lanes), 4)).copy()
+    for lane in range(32):
+        before[:, lane] = acc
+        acc = _emm(acc, lanes[:, lane])
+    tot, acc = acc, np.broadcast_to(one, (len(lanes), 4)).copy()
+    for lane in range(31, -1, -1):
+        after[:, lane] = acc
+        acc = _emm(acc, lanes[:, lane])
+    total = one
+    for w in range(len(tot)):
+        total = _emm(total, tot[w])
+    inv = _mul(_einv(_mul(total, RINV)), R1)          # Montgomery, once
+    fac = []
+    for w in range(len(tot)):
+        others = one
+        for v in range(len(tot)):
+            if v != w:
+                others = _emm(others, tot[v])
+        fac.append(_emm(inv, others))
+    inv = _emm(_emm(np.repeat(np.stack(fac), 32, axis=0),
+                    before.reshape(-1, 4)), after.reshape(-1, 4))
+    out = np.empty_like(d)
+    for j in range(ok.MAX_SLOTS - 1, -1, -1):
+        out[:, j] = _emm(inv, pre[:, j])
+        inv = _emm(inv, d[:, j])
+    out[zero] = 0
+    return out
+
+
 def interpret_reduce(a):
-    """What every thread of open_reduce_kernel does for its LDE row x =
-    GENERATOR * g^row: its points' weighted row sums, less y_alpha, times
-    1/(x - z) (0 for 0), added into (or written to) the codeword."""
-    big, ld, w, n = 1 << a["log_big"], a["ld"], a["w"], a["n_points"]
-    rows = np.arange(big)
-    assert -(-big // REDUCE_ROWS) * REDUCE_ROWS >= big
-    lde = _read(a["lde"], rows[:, None] * ld + np.arange(w))   # (H, w)
-    wts = _read(a["weights"], np.arange(n * w * 4)).reshape(n, w, 4)
-    zm, ya = _words(a, "z", n), _words(a, "ya", n)
-    xm = _mul(_mul(a["x0"], _mpow(a["g"], rows)), RINV)
-    total = np.zeros((big, 4), U)
-    for k in range(n):
-        f = np.zeros((big, 4), U)
-        for c in range(w):
-            f = (f + _mul(lde[:, c:c + 1], wts[k, c])) % U(P)
-        f = _mul(f, RINV)                                 # canonical
-        d = (np.stack([xm, *(np.zeros(big, U),) * 3], -1) + U(P)
-             - zm[k]) % U(P)                              # Montgomery
-        inv = _mul(_einv(_mul(d, RINV)), R1)              # Montgomery
-        num = (f + U(P) - ya[k]) % U(P)
-        total = (total + _mul(_emul(num, inv), RINV)) % U(P)
-    out_mem, out_base = _mem(a["out"])
-    idx = out_base + rows[:, None] * 4 + np.arange(4)
-    if a["accumulate"]:
-        total = (total + out_mem[idx].astype(U)) % U(P)
-    out_mem[idx] = total.astype(np.int32)
-    return a["out"].tensor
+    """What every block of open_reduce_kernel does for its ticket. The
+    first wblocks tickets: a table of alpha^e, then the weight planes of
+    WEIGHT_CHUNKS chunks each (a * alpha^(c - c0) summed over the
+    chunk's segments per slot, byte-transposed) into the buffer. Every
+    later ticket, a row item (REDUCE_ROWS rows of the last height whose
+    first item is at most its own): each chunk of the height staged (zero
+    past the height's rows and the group's columns) beside its weight
+    planes read back from the buffer (the n-tiles its segments use), each
+    warp's 16 rows by the chunk's 32 columns as byte-plane products, the
+    planes of one a + b summed in
+    s32 (held below 2^31) and every FLUSH_CHUNKS chunks reduced mod p,
+    scaled by 2^(8(a+b)) and added into canonical numerators; x =
+    GENERATOR * g^row from the table of generators, the block's x - z
+    inverted as one batch (0 for 0), the numerators less y_alpha times
+    the inverses, summed over the slots, plus the addend, written once.
+    The counters are zero before and after. Returns the codewords by
+    log H."""
+    heights, chunks, segs = reduce_tables(a)
+    gens = np.asarray(a["gens"], U)
+    apow = np.asarray(a["apow"], U).reshape(ok.LOG_SEG, 4)
+    outs = list(a["outs"].values())
+    shift = np.array([_shift_m(s) for s in range(7)], U)
+    one = np.array([R1, 0, 0, 0], U)
+    ctr_mem, ctr_base = _mem(a["ctr"])
+    assert not ctr_mem[ctr_base:ctr_base + 3].any()
+    assert a["blocks"] == sum(-(-(1 << h["log_h"]) // ok.REDUCE_ROWS)
+                              for h in heights)
+    assert [h["first_block"] for h in heights] == list(np.cumsum(
+        [0] + [-(-(1 << h["log_h"]) // ok.REDUCE_ROWS)
+               for h in heights])[:-1])
+    assert a["n_chunks"] == sum(h["chunks"] for h in heights)
+    assert a["wblocks"] == -(-a["n_chunks"] // ok.WEIGHT_CHUNKS)
+    assert 1 <= a["seg_w"] <= ok.MAX_SEG_W
+    assert max(s["w"] for s in segs) <= a["seg_w"] if segs else True
+    w_mem, w_base = _mem(a["wts"])
+    ptab = _alpha_table(apow, a["seg_w"])
+    for ticket in range(a["wblocks"]):
+        for q in range(ticket * ok.WEIGHT_CHUNKS,
+                       min((ticket + 1) * ok.WEIGHT_CHUNKS, len(chunks))):
+            w_mem[w_base + q * ok.WB_WORDS:
+                  w_base + (q + 1) * ok.WB_WORDS] = make_planes(
+                _chunk_weights(chunks[q], segs, ptab)).astype(np.uint32) \
+                .view(np.int32)
+    for item in range(a["blocks"]):
+        hi = max(i for i, h in enumerate(heights)
+                 if h["first_block"] <= item)
+        H = heights[hi]
+        big, ns = 1 << H["log_h"], H["n_slots"]
+        assert 1 <= ns <= ok.MAX_SLOTS
+        r0 = (item - H["first_block"]) * ok.REDUCE_ROWS
+        rows = min(ok.REDUCE_ROWS, big - r0)
+        nn = 8 * ((ns + 1) // 2)                  # the n-tiles' columns
+        acc = np.zeros((7, ok.REDUCE_ROWS, nn), np.int64)
+        part = np.zeros((ok.REDUCE_ROWS, nn), U)
+
+        def flush():
+            assert acc.max() < 1 << 31                # s32, exact
+            s = (acc % P).astype(U) * shift[:, None, None] % U(P)
+            part[:] = (part + _mul(s.sum(axis=0) % U(P), RINV)) % U(P)
+            acc[:] = 0
+
+        for s in range(H["chunks"]):
+            q = H["first_chunk"] + s
+            C = chunks[q]
+            ptr = next(p for p in a["lde"] if p.address() == C["lde"])
+            assert C["vec"] == ok._copy_words(ptr, C["ld"])
+            cols = min(ok.REDUCE_COLS, C["w"] - C["c0"])
+            A = np.zeros((ok.REDUCE_ROWS, ok.REDUCE_COLS), U)
+            A[:rows, :cols] = _read(
+                ptr, (r0 + np.arange(rows))[:, None] * C["ld"] + C["c0"]
+                + np.arange(cols))
+            # the n-tiles the chunk's segments use (the rest are zero)
+            assert 1 <= C["tiles"] <= (ns + 1) // 2
+            nc = 8 * C["tiles"]
+            planes = w_mem[w_base + q * ok.WB_WORDS:
+                           w_base + (q + 1) * ok.WB_WORDS].view(np.uint32)
+            assert not _planes_cache(planes, 16)[:, nc:].any()
+            Bb = _planes_cache(planes, nc)
+            Ab = _bytes(A).astype(np.int64)
+            for x in range(4):
+                for y in range(4):
+                    acc[x + y, :, :nc] += Ab[..., x] @ Bb[..., y]
+            if (s + 1) % ok.FLUSH_CHUNKS == 0:
+                flush()
+        flush()
+        num = np.zeros((ok.REDUCE_ROWS, ok.MAX_SLOTS, 4), U)
+        num.reshape(ok.REDUCE_ROWS, -1)[:, :nn] = part
+        # x of the block's first row, then each row's low bits
+        x0 = np.asarray(a["x0"], U)
+        for j in range(H["log_h"]):
+            if (r0 >> j) & 1:
+                x0 = _mul(_mul(x0, gens[H["log_h"] - j]), RINV)
+        t = np.arange(ok.REDUCE_ROWS)
+        live = t < rows
+        xm = np.full(ok.REDUCE_ROWS, x0, U)
+        for j in range(H["log_h"]):
+            xm = np.where(live & ((t >> j) & 1 == 1),
+                          _mul(_mul(xm, gens[H["log_h"] - j]), RINV), xm)
+        z = H["z"].reshape(ok.MAX_SLOTS, 4)
+        d = np.broadcast_to(one, (ok.REDUCE_ROWS, ok.MAX_SLOTS, 4)).copy()
+        for j in range(ns):
+            dj = (np.stack([xm] + [np.zeros_like(xm)] * 3, -1) + U(P)
+                  - z[j]) % U(P)
+            d[live, j] = dj[live]
+        zero = (d == 0).all(axis=-1)
+        d[zero] = one
+        inv = _batch_inverse(d, zero)[:rows]
+        ya = H["ya"].reshape(ok.MAX_SLOTS, 4)
+        total = np.zeros((rows, 4), U)
+        for j in range(ns):
+            total = (total + _emm((num[:rows, j] + U(P) - ya[j]) % U(P),
+                                  inv[:, j])) % U(P)
+        if H["add"]:
+            add = _tensor_at(outs, H["add"]).numpy()
+            total = (total + add[r0:r0 + rows].astype(U)) % U(P)
+        out = _tensor_at(outs, H["out"]).numpy()
+        out[r0:r0 + rows] = total.astype(np.int32)
+    return a["outs"]
+
+
+def _planes_cache(planes, nn, _cache={}):
+    """read_planes, remembered by the planes' bytes (every row item of a
+    height reads the same planes)."""
+    key = (planes.tobytes(), nn)
+    if key not in _cache:
+        if len(_cache) > 4096:
+            _cache.clear()
+        _cache[key] = read_planes(planes, nn)
+    return _cache[key]
 
 
 def interpret_fold(a):
@@ -341,6 +585,16 @@ def test_header_constants_are_the_wrappers():
             _const("FOLD_RUN"), _const("TILE_WORDS")) == \
         (ok.MAX_POINTS, ok.LOG_POWERS, ok.EVAL_THREADS, ok.ITEM_ROWS,
          ok.STAGE_WORDS, ok.FOLD_THREADS, ok.FOLD_RUN, len(ok.TILE_FIELDS))
+    assert (_const("REDUCE_THREADS"), _const("REDUCE_ROWS"),
+            _const("REDUCE_COLS"), _const("MAX_SLOTS"), _const("MAX_SEG_W"),
+            _const("LOG_SEG"), _const("FLUSH_CHUNKS")) == \
+        (ok.REDUCE_THREADS, ok.REDUCE_ROWS, ok.REDUCE_COLS, ok.MAX_SLOTS,
+         ok.MAX_SEG_W, ok.LOG_SEG, ok.FLUSH_CHUNKS)
+    for name, fields in (("HEIGHT_WORDS", ok.HEIGHT_FIELDS),
+                         ("CHUNK_WORDS", ok.CHUNK_FIELDS),
+                         ("SEG_WORDS", ok.SEG_FIELDS)):
+        assert _const(name) == sum(ok.RECORD_ARRAYS.get(f, 1)
+                                   for f in fields), name
     assert _const("TWO_INV_M") == (P + 1) // 2 * R1 % P
     assert 1 << _const("LOG_FOLD_THREADS") == ok.FOLD_THREADS
     shift = re.search(r"SHIFT_M\[7\] = \{(.*?)\};", SOURCE, re.S).group(1)
@@ -350,27 +604,46 @@ def test_header_constants_are_the_wrappers():
     assert ok.STAGE_WORDS == 32 * ok.MMA_COLS * ok.EVAL_THREADS // 32
     # a warp sums at most ITEM_ROWS rows into s32: 255^2 * rows < 2^31
     assert 255 ** 2 * ok.ITEM_ROWS < 255 ** 2 * (1 << 15) < 1 << 31
+    # open_reduce: 16 rows a warp; the 4 plane pairs of one a + b over
+    # FLUSH_CHUNKS chunks of REDUCE_COLS columns stay below 2^31
+    assert ok.REDUCE_ROWS == 16 * ok.REDUCE_THREADS // 32
+    assert 4 * 255 ** 2 * ok.REDUCE_COLS * ok.FLUSH_CHUNKS < 1 << 31
+    assert 1 << ok.LOG_SEG == ok.MAX_SEG_W
 
 
-@pytest.mark.parametrize("name,fields", [("EvalArgs", ok.EVAL_FIELDS),
-                                         ("ReduceArgs", ok.REDUCE_FIELDS),
-                                         ("FoldArgs", ok.FOLD_FIELDS),
-                                         ("EvalTile", ok.TILE_FIELDS)])
+# each structure's pointer fields (every other field an 8-byte integer)
+_POINTERS = {"EvalArgs": {"tiles", "block_tile", "zpow", "acc", "counter",
+                          "out"},
+             "ReduceArgs": {"heights", "chunks", "segs", "wts", "ctr"},
+             "FoldArgs": {"pair", "add", "out"},
+             "EvalTile": {"coeffs"}, "ReduceHeight": {"out", "add"},
+             "ReduceChunk": {"lde"}, "ReduceSeg": set()}
+
+
+@pytest.mark.parametrize("name,fields", [
+    ("EvalArgs", ok.EVAL_FIELDS), ("ReduceArgs", ok.REDUCE_FIELDS),
+    ("FoldArgs", ok.FOLD_FIELDS), ("EvalTile", ok.TILE_FIELDS),
+    ("ReduceHeight", ok.HEIGHT_FIELDS), ("ReduceChunk", ok.CHUNK_FIELDS),
+    ("ReduceSeg", ok.SEG_FIELDS)])
 def test_structures_match_the_source(name, fields):
     """The wrapper lists the C structures' fields in order, each an 8-byte
-    integer (or an array of them) or a pointer as in the source; an
-    EvalTile is its slice's address and 8-byte integers."""
+    integer (or an array of them) or a pointer as in the source (the
+    argument structures' integers are INT_FIELDS); the records' arrays
+    have RECORD_ARRAYS' lengths, the structures' _ARRAYS'."""
     body = re.search(r"struct %s \{(.*?)\};" % name, SOURCE, re.S).group(1)
     decl = re.findall(r"^\s*([\w ]+?\*?)\s*(\w+)(\[[^\]]+\])?;", body, re.M)
     assert tuple(n for _, n, _ in decl) == fields
-    ints = ok.INT_FIELDS if name != "EvalTile" else set(fields[1:])
+    pointers = _POINTERS[name]
+    if name.endswith("Args"):
+        assert pointers == set(fields) - ok.INT_FIELDS
+    arrays = ok._ARRAYS if name.endswith("Args") else ok.RECORD_ARRAYS
     for ctype, n, arr in decl:
-        assert (ctype == "long long") == (n in ints), (n, ctype)
-        assert ctype.endswith("*") == (n not in ints), (n, ctype)
+        assert (ctype == "long long") == (n not in pointers), (n, ctype)
+        assert ctype.endswith("*") == (n in pointers), (n, ctype)
         if arr:
-            assert eval(arr[1:-1], {"MAX_POINTS": ok.MAX_POINTS,
-                                    "LOG_POWERS": ok.LOG_POWERS}) == \
-                ok._ARRAYS[n]
+            assert eval(arr[1:-1], {k: getattr(ok, k) for k in (
+                "MAX_POINTS", "LOG_POWERS", "MAX_SLOTS", "LOG_SEG")}) == \
+                arrays[n]
 
 
 def _byte_perm(x, y, sel):
@@ -630,8 +903,9 @@ def test_eval_worst_case_column_is_exact():
 @pytest.mark.parametrize("log_big,w,n_points,add", [
     (1, 1, 1, False), (4, 7, 2, True), (7, 40, 2, False), (8, 3, 1, True)])
 def test_reduce_packing_matches_plain(log_big, w, n_points, add):
-    """open_reduce's packing, interpreted, equals the plain version; the
-    last point is a row's x of the domain (x - z = 0 there)."""
+    """open_reduce's packing of one group with dense weights (a segment a
+    column), interpreted, equals the plain version; the last point is a
+    row's x of the domain (x - z = 0 there)."""
     rng = np.random.default_rng(100 + log_big)
     lde = _slice(rng, 1 << log_big, w)
     x5 = GENERATOR * pow(bb.two_adic_generator_s(log_big), 5 % (1 << log_big),
@@ -644,8 +918,258 @@ def test_reduce_packing_matches_plain(log_big, w, n_points, add):
     want = ok.reduce_plain(ro, lde, zs, weights, y_alpha)
     a = ok.reduce_args(None if ro is None else ro.clone(), lde, zs, weights,
                        y_alpha)
-    got = interpret_reduce(a)
+    got = interpret_reduce(a)[log_big]
     assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def _alpha_segments(widths, points, o, alpha):
+    """A group's weight segments as device_open_rounds makes them: a
+    matrix of each width side by side, a segment (k, first column, width,
+    alpha^o) for each of its points (indices into the group's points),
+    o counting every (matrix, point)'s columns from `o`. Returns the
+    segments and the next offset."""
+    segs, c0 = [], 0
+    for w, pts in zip(widths, points):
+        for k in pts:
+            segs.append((k, c0, w, ext_t.epow_s(alpha, o)))
+            o += w
+        c0 += w
+    return segs, o
+
+
+def _reduce_groups(rng, spec, alpha, zeta):
+    """(lde, zs, segments, y_alpha) groups from (log H, matrix widths,
+    each matrix's point indices, point kinds, layout) specs: the points
+    zeta, zeta * g_(H/2), zeta^2 or a row's x of the domain; an LDE
+    contiguous (as dcommit makes it) or a column slice of an odd-stride
+    matrix; y_alpha random."""
+    groups, o = [], 0
+    for log_h, widths, points, kinds, layout in spec:
+        w = sum(widths)
+        lde = _slice(rng, 1 << log_h, w) if layout == "slice" else \
+            torch.from_numpy(_field(rng, 1 << log_h, w).astype(np.int32))
+        g = bb.two_adic_generator_s(max(log_h - 1, 0))
+        x3 = GENERATOR * pow(bb.two_adic_generator_s(log_h), 3 % (1 << log_h),
+                             P) % P
+        pool = {"zeta": zeta, "zg": ext_t.emul_s(zeta, (g, 0, 0, 0)),
+                "zeta2": ext_t.emul_s(zeta, zeta), "x": (x3, 0, 0, 0)}
+        zs = [pool[k] for k in kinds]
+        segs, o = _alpha_segments(widths, points, o, alpha)
+        groups.append((lde, zs, segs, _field(rng, len(zs), 4)))
+    return groups
+
+
+REDUCE_CASES = {
+    # three rounds' groups at 2^10 (zeta, zeta * g, zeta^2 share slots),
+    # 2^7 and a 1-row matrix's 2 rows whose list repeats zeta; widths
+    # past MAX_SEG_W and REDUCE_COLS; 16-, 8- and 4-byte copies
+    "rounds": [
+        (10, [300, 20], [[0, 1], [0, 1]], ["zeta", "zg"], "contiguous"),
+        (10, [18], [[0, 1]], ["zeta", "zg"], "contiguous"),
+        (10, [8, 8], [[0], [0]], ["zeta2"], "slice"),
+        (7, [13, 6], [[0, 1], [1]], ["zeta", "zg"], "slice"),
+        (7, [8], [[0]], ["zeta2"], "contiguous"),
+        (1, [3, 2], [[0, 0], [0]], ["zeta"], "contiguous"),
+        (1, [4], [[0]], ["zeta2"], "contiguous")],
+    # four distinct points at one height, one of them a row's x (x - z
+    # = 0), past a block's REDUCE_ROWS rows
+    "four slots": [
+        (8, [40], [[0, 1]], ["zeta", "x"], "slice"),
+        (8, [33], [[0, 1]], ["zeta2", "zg"], "contiguous")],
+}
+
+
+@pytest.mark.parametrize("case", sorted(REDUCE_CASES))
+@pytest.mark.parametrize("into", [False, True])
+def test_reduce_groups_packing_matches_plain(case, into):
+    """open_reduce_groups' packing of several rounds' groups, interpreted,
+    equals the plain version height by height: points shared across
+    rounds in one slot, repeated points, segments cut at MAX_SEG_W,
+    weights made from one alpha^o a segment; written anew, or added into
+    given codewords."""
+    rng = np.random.default_rng(300 + len(case) + into)
+    alpha, zeta = _ext(rng), _ext(rng)
+    groups = _reduce_groups(rng, REDUCE_CASES[case], alpha, zeta)
+    logs = sorted({_log2(g[0]) for g in groups})
+    ro = {lh: torch.from_numpy(_field(rng, 1 << lh, 4).astype(np.int32))
+          for lh in logs} if into else None
+    want = ok.reduce_groups_plain(groups, alpha, ro)
+    a = ok.reduce_groups_args(
+        groups, alpha, {k: v.clone() for k, v in ro.items()} if into
+        else None)
+    heights, chunks, _ = reduce_tables(a)
+    assert [h["log_h"] for h in heights] == \
+        list(dict.fromkeys(_log2(g[0]) for g in groups))
+    assert {c["vec"] for c in chunks} == ({1} if case == "four slots"
+                                          else {4, 2, 1})
+    assert {c["tiles"] for c in chunks} == {1, 2}
+    got = interpret_reduce(a)
+    assert sorted(got) == logs
+    for lh in logs:
+        assert got[lh].dtype == torch.int32
+        assert torch.equal(got[lh], want[lh]), lh
+
+
+def _log2(t):
+    return int(t.shape[0]).bit_length() - 1
+
+
+def test_reduce_weights_are_alpha_powers():
+    """The weights the kernel makes from one alpha^o a segment (each
+    block's table of alpha^e, the chunks' segments summed per slot), and
+    the plain version's, equal host_pcs.ext_powers_from(alpha, o, w) per
+    (matrix, point), summed where a matrix repeats a point."""
+    from lurk_tpu_torch.stark import pcs as host_pcs
+    rng = np.random.default_rng(41)
+    alpha, zeta = _ext(rng), _ext(rng)
+    widths, points = [5, 600, 40], [[0, 1], [1], [0, 0]]
+    (group,) = _reduce_groups(rng, [(3, widths, points, ["zeta", "zg"],
+                                     "contiguous")], alpha, zeta)
+    w = sum(widths)
+    want = np.zeros((2, w, 4), U)
+    o = c0 = 0
+    for wd, pts in zip(widths, points):
+        for k in pts:
+            want[k, c0:c0 + wd] = (want[k, c0:c0 + wd] +
+                                   host_pcs.ext_powers_from(alpha, o, wd)) \
+                % U(P)
+            o += wd
+        c0 += wd
+    a = ok.reduce_groups_args([group], alpha)
+    heights, chunks, segs = reduce_tables(a)
+    assert max(s["w"] for s in segs) == a["seg_w"] == ok.MAX_SEG_W
+    ptab = _alpha_table(np.asarray(a["apow"], U).reshape(ok.LOG_SEG, 4),
+                        a["seg_w"])
+    made = [_chunk_weights(C, segs, ptab) for C in chunks]
+    np.testing.assert_array_equal(
+        np.concatenate([m[:2] for m in made], axis=1)[:, :w], want)
+    assert not any(m[2:].any() for m in made)
+    for m in made:                   # the planes give back the bytes
+        got = read_planes(make_planes(m), 16)
+        np.testing.assert_array_equal(
+            got, _bytes(m.transpose(1, 0, 2).reshape(ok.REDUCE_COLS, 16)))
+    np.testing.assert_array_equal(
+        ok.segment_weights(group[2], 2, w, alpha, CPU).numpy(), want)
+
+
+def test_reduce_wide_group_flushes_exactly():
+    """An all-(p - 1) group wider than one s32 sum's FLUSH_CHUNKS chunks
+    (2 rows of a slice of odd stride, 4-byte copies), one segment of all
+    its columns: interpreted (each s32 sum held below 2^31 at every
+    flush), equal to the plain version; row 1's x is the second point."""
+    rng = np.random.default_rng(43)
+    w = ok.FLUSH_CHUNKS * ok.REDUCE_COLS + 3
+    lde = torch.full((2, w + 2), P - 1, dtype=torch.int32)[:, 1:1 + w]
+    alpha = (P - 1,) * 4
+    x1 = GENERATOR * (P - 1) % P                   # GENERATOR * g_2
+    zs = [(P - 1, 0, 0, P - 1), (x1, 0, 0, 0)]
+    groups = [(lde, zs, [(0, 0, w, alpha), (1, 0, w, (P - 1, 0, 0, 0))],
+               _field(rng, 2, 4))]
+    got = interpret_reduce(ok.reduce_groups_args(groups, alpha))[1]
+    assert torch.equal(got, ok.reduce_groups_plain(groups, alpha)[1])
+
+
+def test_reduce_batch_inverse_with_zero_denominators():
+    """The block's batched inverse of x - z (prefix and suffix products
+    over each warp's lanes, one inverse of the block's product) gives
+    each denominator's inverse, 0 for 0, however the zeros fall: one in
+    a row, a whole row, a whole warp."""
+    rng = np.random.default_rng(44)
+    d = _mul(_field(rng, ok.REDUCE_ROWS * ok.MAX_SLOTS, 4).astype(U),
+             R1).reshape(ok.REDUCE_ROWS, ok.MAX_SLOTS, 4)
+    d[3, 1] = 0
+    d[40] = 0
+    d[32:64, 2] = 0
+    zero = (d == 0).all(axis=-1)
+    d_one = d.copy()
+    d_one[zero] = np.array([R1, 0, 0, 0], U)
+    got = _batch_inverse(d_one, zero)
+    want = _mul(_einv(_mul(d, RINV)), R1)
+    np.testing.assert_array_equal(got, want)
+    assert not got[zero].any()
+
+
+def _r_word(row, q):
+    """r_word of csrc/open.cu."""
+    return row * ok.REDUCE_COLS + ((q ^ ((row & 1) << 2)) << 2)
+
+
+def _wb_word(nt, b, n, kw):
+    """wb_word of csrc/open.cu."""
+    return ((nt * 4 + b) * 8 + n) * 8 + 2 * (kw & 3) + (kw >> 2)
+
+
+def test_reduce_fragments_give_the_byte_products():
+    """One warp's stage of open_reduce_kernel, lane by lane: its A
+    fragments as 16-byte loads of four columns of a row from the swizzled
+    stage (transpose4 run with the source's selectors), its B fragments
+    as 8-byte loads of the weight planes made by four lanes a limb, the
+    MMAs as the PTX ISA defines them (K = the stage's columns), and the
+    epilogue's (row, slot, limb) of each D register: every (a, b) sum
+    equals the byte-plane product. The stage's swizzle keeps each row's
+    16-byte chunks whole and puts a quarter warp's loads on 32 banks; the
+    B loads and the weight writes hit distinct banks."""
+    assert re.search(r"return row \* REDUCE_COLS \+ \(\(q \^ \(\(row & 1\) << "
+                     r"2\)\) << 2\);", SOURCE)
+    assert re.search(r"return \(\(nt \* 4 \+ b\) \* 8 \+ n\) \* 8 \+ 2 \* "
+                     r"\(kw & 3\) \+ \(kw >> 2\);", SOURCE)
+    rng = np.random.default_rng(45)
+    rows, cols = ok.REDUCE_ROWS, ok.REDUCE_COLS
+    lanes = np.arange(32)
+    g, tig = lanes >> 2, lanes & 3
+    assert sorted(_r_word(r, q) + j for r in range(rows) for q in range(8)
+                  for j in range(4)) == list(range(rows * cols))
+    for i in range(4):                     # a quarter warp's 16-byte loads
+        for quarter in range(4):
+            sel = lanes[8 * quarter:8 * quarter + 8]
+            chunks = {(_r_word(g[x] + 8 * (i & 1), tig[x] + 4 * (i >> 1))
+                       // 4) % 8 for x in sel}
+            assert len(chunks) == 8, (i, quarter)
+    for half in range(2):                  # a half warp's 8-byte B loads
+        sel = lanes[16 * half:16 * half + 16]
+        assert len({_wb_word(0, 0, g[x], tig[x]) // 2 % 16 for x in sel}) \
+            == 16
+    assert len({_wb_word(0, 0, 4 * (0 & 1) + (x & 3), x >> 2) % 32
+                for x in lanes}) == 32     # the weight writes
+    tile = rng.integers(0, P, (rows, cols)).astype(np.int64)
+    stage = np.zeros(rows * cols, np.int64)
+    for r in range(rows):
+        for c in range(cols):
+            stage[_r_word(r, c // 4) + c % 4] = tile[r, c]
+    W = rng.integers(0, P, (ok.MAX_SLOTS, cols, 4)).astype(np.int64)
+    wb = np.zeros(2 * 4 * 8 * 8, np.int64)
+    for j in range(ok.MAX_SLOTS):          # slot j's warp, lane 4 kw + l
+        for lane in range(32):
+            kw, l = lane >> 2, lane & 3
+            o = _transpose4([int(W[j, 4 * kw + r, l]) for r in range(4)])
+            for b in range(4):
+                wb[_wb_word(j >> 1, b, 4 * (j & 1) + l, kw)] = o[b]
+    np.testing.assert_array_equal(wb, make_planes(W.astype(U)))
+    warp = 3
+    af = [[[0] * 4 for _ in range(4)] for _ in range(32)]
+    for lane in range(32):
+        for i in range(4):
+            w0 = _r_word(16 * warp + g[lane] + 8 * (i & 1),
+                         tig[lane] + 4 * (i >> 1))
+            o = _transpose4([int(v) for v in stage[w0:w0 + 4]])
+            for x in range(4):
+                af[lane][x][i] = o[x]
+    for nt in range(2):
+        for b in range(4):
+            bregs = [[int(wb[_wb_word(nt, b, g[lane], tig[lane]) + i])
+                      for i in range(2)] for lane in range(32)]
+            for x in range(4):
+                d = _mma_m16n8k32([af[lane][x] for lane in range(32)],
+                                  bregs)
+                for lane in range(32):
+                    for r in range(4):
+                        row = 16 * warp + g[lane] + 8 * (r >> 1)
+                        j = 2 * nt + (tig[lane] >> 1)
+                        l = 2 * (tig[lane] & 1) + (r & 1)
+                        want = sum(((tile[row, c] >> (8 * x)) & 255) *
+                                   ((W[j, c, l] >> (8 * b)) & 255)
+                                   for c in range(cols))
+                        assert d[lane][r] == want, (nt, b, x, lane, r)
 
 
 @pytest.mark.parametrize("log_n,add", [(2, False), (5, True), (11, False),
@@ -687,6 +1211,17 @@ def test_packing_rejects_layouts_the_kernels_do_not_take():
     with pytest.raises(ValueError):               # a codeword of int64
         ok.reduce_args(torch.zeros((8, 4), dtype=torch.int64), lde, z,
                        np.zeros((1, 4, 4)), np.zeros((1, 4)))
+    ya = np.zeros((1, 4))
+    five = [[(k, 0, 0, 0)] for k in range(ok.MAX_SLOTS + 1)]
+    with pytest.raises(ValueError):               # 5 points at one height
+        ok.reduce_groups_args([(lde, p, [], ya) for p in five], z[0])
+    for seg in ((0, 2, 3, z[0]), (1, 0, 1, z[0]), (0, -1, 2, z[0])):
+        with pytest.raises(ValueError):           # outside the group
+            ok.reduce_groups_args([(lde, z, [seg], ya)], z[0])
+    with pytest.raises(ValueError):               # y_alpha of 2 points
+        ok.reduce_groups_args([(lde, z, [], np.zeros((2, 4)))], z[0])
+    with pytest.raises(ValueError):
+        ok.reduce_groups_args([], z[0])
     pair = torch.zeros((8, 8), dtype=torch.int32)
     with pytest.raises(ValueError):               # an add of the wrong height
         ok.fold_args(pair, z[0], GENERATOR,
@@ -725,31 +1260,64 @@ def test_eval_plain_matches_lurk_tpu():
 
 
 def test_reduce_plain_matches_lurk_tpu():
-    """reduce_plain (_inv_xz + _reduce_chunked + bb.fadd per point) equals
-    lurk_tpu's _inv_xz_fn + _reduce_fn added into the codeword."""
+    """reduce_plain (_inv_xz + _reduce_chunked + bb.fadd per point), and
+    open_reduce's packings interpreted (one group with dense weights; the
+    group with weights made from alpha^o segments, a matrix repeating a
+    point), equal lurk_tpu's _inv_xz_fn + _reduce_fn added into the
+    codeword, at the one shape this test compiles."""
+    from lurk_tpu_torch.stark import pcs as host_pcs
     rng = np.random.default_rng(12)
     log_big, w = 4, 5
     big = 1 << log_big
     lde = _field(rng, big, w)
+    lde_t = torch.from_numpy(lde.astype(np.int32))
     zs = [_ext(rng), _ext(rng)]
-    weights = np.stack([_field(rng, w, 4) for _ in zs])
     y_alpha = _field(rng, 2, 4)
     ro = _field(rng, big, 4)
-    got = ok.open_reduce(torch.from_numpy(ro.astype(np.int32)),
-                         torch.from_numpy(lde.astype(np.int32)), zs, weights,
-                         y_alpha)
-    want = ro.astype(U)
     xs = jdp._xs_dev(log_big)
+    inv_xz = [jdp._inv_xz_fn(big)(xs, jdp.ext_scalar_dev(z)) for z in zs]
+
+    def lurk(weights):
+        want = ro.astype(U)
+        for k, z in enumerate(zs):
+            contrib = jdp._reduce_fn(big, w)(
+                _jnp(lde), _jnp(_mul(weights[k], R1)), _jnp(y_alpha[k]),
+                inv_xz[k])
+            want = (want + np.asarray(contrib, U)) % U(P)
+        return want
+
     for k, z in enumerate(zs):
-        inv_xz = jdp._inv_xz_fn(big)(xs, jdp.ext_scalar_dev(z))
         np.testing.assert_array_equal(
             dp._inv_xz(dp._xs_dev(log_big, CPU),
                        dp.ext_scalar_dev(z, CPU)).numpy(),
-            np.asarray(inv_xz))
-        contrib = jdp._reduce_fn(big, w)(
-            _jnp(lde), _jnp(_mul(weights[k], R1)), _jnp(y_alpha[k]), inv_xz)
-        want = (want + np.asarray(contrib, U)) % U(P)
+            np.asarray(inv_xz[k]))
+    weights = np.stack([_field(rng, w, 4) for _ in zs])
+    want = lurk(weights)
+    got = ok.open_reduce(torch.from_numpy(ro.astype(np.int32)), lde_t, zs,
+                         weights, y_alpha)
     np.testing.assert_array_equal(got.numpy(), want)
+    a = ok.reduce_args(torch.from_numpy(ro.astype(np.int32)), lde_t, zs,
+                       weights, y_alpha)
+    np.testing.assert_array_equal(interpret_reduce(a)[log_big].numpy(),
+                                  want)
+    # matrices of widths 2 and 3; the first opens at both points, the
+    # second at point 1 twice (alpha offsets 0, 2, 4, 7)
+    alpha = _ext(rng)
+    segs = [(0, 0, 2, ext_t.epow_s(alpha, 0)),
+            (1, 0, 2, ext_t.epow_s(alpha, 2)),
+            (1, 2, 3, ext_t.epow_s(alpha, 4)),
+            (1, 2, 3, ext_t.epow_s(alpha, 7))]
+    weights = np.zeros((2, w, 4), U)
+    for k, c0, wd, o in ((0, 0, 2, 0), (1, 0, 2, 2), (1, 2, 3, 4),
+                         (1, 2, 3, 7)):
+        weights[k, c0:c0 + wd] = (weights[k, c0:c0 + wd] +
+                                  host_pcs.ext_powers_from(alpha, o, wd)) \
+            % U(P)
+    a = ok.reduce_groups_args([(lde_t, zs, segs, y_alpha)], alpha,
+                              {log_big: torch.from_numpy(
+                                  ro.astype(np.int32))})
+    np.testing.assert_array_equal(interpret_reduce(a)[log_big].numpy(),
+                                  lurk(weights.astype(np.int64)))
 
 
 def test_fold_plain_matches_lurk_tpu():
@@ -796,3 +1364,43 @@ def test_device_fri_layers_pass_pairs_between_folds(tail, monkeypatch):
     assert codec.encode(got) == codec.encode(want)
     assert got_ch.sample_ext() == want_ch.sample_ext()
     assert ok.fri_fold.launches == before       # no card: plain version
+
+
+def test_device_open_rounds_match_lurk_tpus_host_open():
+    """device_open_rounds on CPU tensors (open_eval_groups' and
+    open_reduce_groups' plain versions, y_alpha in one vectorised pass)
+    gives lurk_tpu's host pcs.open_rounds proof, byte for byte, on two
+    rounds: 1-row matrices whose point list repeats zeta, 16- and 64-row
+    ones at zeta and zeta * g, and a quotient-like round at zeta^2 (three
+    distinct points at a height)."""
+    from lurk_tpu.stark import pcs as jpcs
+    from lurk_tpu.stark.challenger import Challenger as JChallenger
+    from lurk_tpu.stark.fri import FriConfig as JFriConfig
+    from lurk_tpu.utils import codec as jcodec
+    from lurk_tpu_torch.stark.challenger import Challenger
+    from lurk_tpu_torch.stark.fri import FriConfig
+    from lurk_tpu_torch.utils import codec
+    rng = np.random.default_rng(46)
+    shapes = [[(1, 3), (1, 2), (16, 5), (64, 4), (16, 9)], [(16, 8), (64, 8)]]
+    mats = [[rng.integers(0, P, s).astype(U) for s in r] for r in shapes]
+    zeta = _ext(rng)
+
+    def at(h):
+        g = bb.two_adic_generator_s(h.bit_length() - 1) if h > 1 else 1
+        return [zeta, ext_t.emul_s(zeta, (g, 0, 0, 0))]
+
+    points = [[at(m.shape[0]) for m in mats[0]],
+              [[ext_t.emul_s(zeta, zeta)] for _ in mats[1]]]
+    assert points[0][0] == [zeta, zeta]
+    jch, ch = JChallenger(), Challenger()
+    jrounds = [jpcs.commit(r) for r in mats]
+    rounds = [dp.dcommit([m.copy() for m in r], CPU) for r in mats]
+    for jr, r in zip(jrounds, rounds):
+        assert jr.roots == r.roots
+        for root in r.roots:
+            jch.observe_many(root)
+            ch.observe_many(root)
+    want = jpcs.open_rounds(jrounds, points, JFriConfig(1, 4, 1), jch)
+    got = dp.device_open_rounds(rounds, points, FriConfig(1, 4, 1), ch)
+    assert codec.encode(got) == jcodec.encode(want)
+    assert ch.sample_ext() == jch.sample_ext()
