@@ -25,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..stark import spans
+
 # ---------------------------------------------------------------------------
 # Field constants
 # ---------------------------------------------------------------------------
@@ -175,12 +177,22 @@ def np_from_mont(a: np.ndarray) -> np.ndarray:
     return ((a.astype(np.uint64) * np.uint64(rinv)) % np.uint64(P)).astype(np.uint32)
 
 
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array -> tensor of its dtype on device (shared with `a` on
+    the CPU, as torch.from_numpy is). The bytes count as `h2d_bytes` of a
+    recorded prove (stark/spans.py)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    spans.count("h2d_bytes", t.nbytes)
+    return t.to(device)
+
+
 def from_numpy(a: np.ndarray, device) -> torch.Tensor:
     """Canonical host array (uint32/uint64/int) -> int32 tensor on device."""
-    return torch.from_numpy(np.ascontiguousarray(a, np.int64).astype(np.int32)) \
-        .to(device)
+    return upload(np.ascontiguousarray(a, np.int64).astype(np.int32), device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """Canonical int32/int64 tensor -> uint32 host array."""
+    """Canonical int32/int64 tensor -> uint32 host array. The bytes count
+    as `d2h_bytes` of a recorded prove."""
+    spans.count("d2h_bytes", t.nbytes)
     return t.detach().cpu().numpy().astype(np.uint32)

@@ -80,10 +80,9 @@ def _bitrev_perm(log_n: int):
 @lru_cache(maxsize=None)
 def _torch_tables(log_n: int, inverse: bool, device: torch.device):
     """(bit-reversal index, per-stage canonical int64 twiddles) on device."""
-    rev = torch.from_numpy(_bitrev_perm(log_n)).to(device)
-    stages = tuple(
-        torch.from_numpy(bb.np_from_mont(t).astype(np.int64)).to(device)
-        for t in _stage_twiddles(log_n, inverse))
+    rev = bb.upload(_bitrev_perm(log_n), device)
+    stages = tuple(bb.upload(bb.np_from_mont(t).astype(np.int64), device)
+                   for t in _stage_twiddles(log_n, inverse))
     return rev, stages
 
 
@@ -213,8 +212,8 @@ def _shift_powers(log_n: int, shift: int):
 @lru_cache(maxsize=None)
 def shift_powers_dev(log_n: int, shift: int, device: torch.device):
     """Canonical int64 [shift^0 .. shift^(n-1)] on device."""
-    return torch.from_numpy(
-        _geom_powers_np(shift, 1 << log_n).astype(np.int64)).to(device)
+    return bb.upload(_geom_powers_np(shift, 1 << log_n).astype(np.int64),
+                     device)
 
 
 def coset_eval(coeffs, log_blowup: int, shift: int = GENERATOR):

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..field import babybear as bb
+from ..stark import spans
 from . import bytecode as B
 from .func_chip import DEPTH_W, DEPTH_LT_NUM_REQUIRES
 
@@ -386,8 +387,10 @@ def _pow2_bucket(n: int, lo: int = 1 << 12, hi: int = 1 << 18) -> int:
 
 
 def _up(a: np.ndarray, device) -> torch.Tensor:
-    """Host integer array -> int64 tensor on device."""
-    return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(device)
+    """Host integer array -> int64 tensor on device: a `witness.upload`
+    span of a recorded prove."""
+    with spans.span("witness.upload", each=True):
+        return bb.upload(np.ascontiguousarray(a, np.int64), device)
 
 
 def _finv(x: torch.Tensor) -> torch.Tensor:

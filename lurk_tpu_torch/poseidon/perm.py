@@ -55,7 +55,7 @@ def _pow7(x: torch.Tensor) -> torch.Tensor:
 def _tables(width: int, device: torch.device):
     """Canonical int64 (full_rc (r_f, w), part_rc (r_p,), diag (w,))."""
     cfg = get_config(width)
-    return tuple(torch.from_numpy(np.asarray(a, np.int64)).to(device)
+    return tuple(bb.upload(np.asarray(a, np.int64), device)
                  for a in (cfg.full_rc, cfg.part_rc, cfg.diag))
 
 

@@ -6,13 +6,17 @@
 Evaluates benches/lurk_bench.py's fib program with the native
 interpreter, sets up the full Lurk machine at the production FriConfig(),
 proves once to warm up, then proves again under torch.profiler (CPU and
-CUDA activities). Prints the card's name and power limit, the warm prove's
-wall seconds, the device busy time (the union of the intervals of every
-device event: kernels and copies) and its share of the wall, the number of
-device events, the total time and launches of each hand-written kernel
-(Poseidon2, constraint_quotient, logup_perm_phi, open_eval, open_reduce,
-fri_fold), and the device kernels by total time. With --trace, writes the chrome trace there. Needs a card;
-it exits non-zero without one.
+CUDA activities) with the prove's spans recorded (stark/spans.py), each
+also a torch.profiler.record_function range. Prints the card's name and
+power limit, the warm prove's wall seconds, the device busy time (the
+union of the intervals of every device event: kernels and copies) and its
+share of the wall, the number of device events, the total time and
+launches of each hand-written kernel (Poseidon2, constraint_quotient,
+logup_perm_phi, open_eval, open_reduce, fri_fold), the device kernels by
+total time and, beside them, the host seconds of each span name summed
+over the shards (with and without its child spans). With --trace, writes
+the chrome trace there: the spans over the kernels, on one clock. Needs a
+card; it exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -37,6 +41,21 @@ def _busy_us(intervals) -> float:
     return total
 
 
+def _span_table(rows) -> str:
+    """Host seconds by span name, summed over the shards: with its child
+    spans (inclusive) and without them (exclusive), and the spans' count."""
+    by: dict = {}
+    for r in rows:
+        inc, exc, n = by.get(r["name"], (0.0, 0.0, 0))
+        by[r["name"]] = (inc + (r["end_ns"] - r["start_ns"]) / 1e9,
+                         exc + r["exclusive_s"], n + 1)
+    lines = [f"{'span':<18} {'inclusive s':>12} {'exclusive s':>12} "
+             f"{'spans':>6}"]
+    for name, (inc, exc, n) in sorted(by.items(), key=lambda kv: -kv[1][1]):
+        lines.append(f"{name:<18} {inc:>12.6f} {exc:>12.6f} {n:>6}")
+    return "\n".join(lines)
+
+
 def main(argv=None) -> int:
     import torch
     ap = argparse.ArgumentParser()
@@ -57,6 +76,7 @@ def main(argv=None) -> int:
     from .stark.fri import FriConfig
     from .stark.open_kernel import fri_fold, open_eval, open_reduce
     from .stark.quotient_kernel import constraint_quotient, logup_perm_phi
+    from .stark import spans
 
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -91,10 +111,14 @@ def main(argv=None) -> int:
                "fri_fold": (fri_fold, "fri_fold_kernel")}
     for fn, _ in kernels.values():
         fn.launches = 0
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        prove()
-        wall = time.perf_counter() - t0
+    spans.enable(True, ranges=True)
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            prove()
+            wall = time.perf_counter() - t0
+    finally:
+        spans.enable(None)
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = _busy_us((e.time_range.start, e.time_range.end) for e in dev)
@@ -109,6 +133,7 @@ def main(argv=None) -> int:
           f"of the wall), {len(dev)} device events; {per_kernel} {on}")
     print(prof.key_averages().table(sort_by="device_time_total",
                                     row_limit=25, max_name_column_width=60))
+    print(_span_table(machine.last_device_prove["spans"]))
     if args.trace:
         prof.export_chrome_trace(f"{args.trace}/profile_prove.json")
     return 0

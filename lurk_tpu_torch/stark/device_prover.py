@@ -53,63 +53,12 @@ from ..field import ext as ext_t
 from ..field.ntt import GENERATOR, coset_eval, device_ntt
 from .fri import FriConfig, FriProof, FriQuery, FriQueryStep, geom_powers
 from . import pcs as host_pcs
+from .spans import PhasePeaks, recording, span
 
 P = bb.P
 I32 = bb.I32
 I64 = bb.I64
 LOG_BLOWUP = 1
-
-# LURK_TPU_PROVE_TIMING=1 prints per-phase wall times to stderr. The
-# timestamps are taken at the existing host sync points (no extra
-# synchronisation is inserted), so read the output as "where does the host
-# block".
-_TIMING = _os.environ.get("LURK_TPU_PROVE_TIMING", "0") == "1"
-
-
-def _mem_str() -> str:
-    if not torch.cuda.is_available():
-        return ""
-    g = 1 << 30
-    return (f" [cuda {torch.cuda.memory_allocated() / g:.2f}/"
-            f"{torch.cuda.max_memory_allocated() / g:.2f}/"
-            f"{torch.cuda.max_memory_reserved() / g:.2f} GiB "
-            "use/peak/peak reserved]")
-
-
-class _PhasePeaks:
-    """Device-memory peaks of a prove's phases on a CUDA device: at each
-    stamp, the allocated and reserved peaks since the previous stamp (the
-    allocator's peak counters are reset there) and the allocated memory
-    left. Allocations happen when an op is dispatched, so a phase's peak
-    is that of the ops dispatched in it. Records nothing on the CPU."""
-
-    def __init__(self, device: torch.device):
-        self.device = device if device.type == "cuda" else None
-        self.peaks: List[Tuple[str, int, int, int]] = []
-        if self.device is not None:
-            torch.cuda.reset_peak_memory_stats(self.device)
-
-    def stamp(self, phase: str) -> None:
-        d = self.device
-        if d is None:
-            return
-        self.peaks.append((phase, torch.cuda.max_memory_allocated(d),
-                           torch.cuda.max_memory_reserved(d),
-                           torch.cuda.memory_allocated(d)))
-        torch.cuda.reset_peak_memory_stats(d)
-
-
-def _tlog(label: str, t0: float, mem: Optional[_PhasePeaks] = None,
-          phase: str = "") -> float:
-    """Print the seconds since t0 under LURK_TPU_PROVE_TIMING=1 (and the
-    device memory, before `mem` resets its peaks at `phase`)."""
-    t1 = _time.perf_counter()
-    if _TIMING:
-        print(f"[prove-timing] {label}: {t1 - t0:.3f}s{_mem_str()}",
-              file=_sys.stderr, flush=True)
-    if mem is not None:
-        mem.stamp(phase)
-    return t1
 
 
 def _log2(n: int) -> int:
@@ -150,7 +99,7 @@ def mod_cumsum(x, dim: int = 0):
 
 def ext_scalar_dev(t, device) -> torch.Tensor:
     """Python ext tuple -> (4,) canonical int64 tensor on device."""
-    return torch.tensor([int(v) % P for v in t], dtype=I64, device=device)
+    return bb.upload(np.array([int(v) % P for v in t], np.int64), device)
 
 
 def ext_mul_scalar(a, t):
@@ -299,7 +248,7 @@ def _open_many_parts(tree: DTree, indices: List[int]):
     nq = len(indices)
     idx_np = np.asarray(indices, np.int64)
     dev = tree.concat.device
-    dev_parts = [tree.concat[torch.from_numpy(idx_np).to(dev)]]
+    dev_parts = [tree.concat[bb.upload(idx_np, dev)]]
     paths: List[Optional[np.ndarray]] = []
     dev_slots = []
     idx = idx_np
@@ -310,7 +259,7 @@ def _open_many_parts(tree: DTree, indices: List[int]):
         else:
             dev_slots.append(len(paths))
             paths.append(None)
-            dev_parts.append(level[torch.from_numpy(sib).to(dev)])
+            dev_parts.append(level[bb.upload(sib, dev)])
         idx = idx >> 1
     return nq, depth, dev_parts, paths, dev_slots
 
@@ -670,7 +619,7 @@ def _d_fingerprint(inter, ctx: DeviceEvalCtx, r_dev, gpows):
 def gamma_pows_dev(gamma, count: int, device) -> torch.Tensor:
     """(count+1, 4) canonical int64 powers of gamma."""
     from ..logup.trace import gamma_powers
-    return torch.tensor(gamma_powers(gamma, count), dtype=I64, device=device)
+    return bb.upload(np.array(gamma_powers(gamma, count), np.int64), device)
 
 
 def _max_values(builder) -> int:
@@ -757,7 +706,7 @@ def _coset_tables(log_h: int, device: torch.device):
     sels, zh = _sels_on_coset(log_h, GENERATOR, log_big)
     inv_zh = E_np.batch_inv_base(zh)
     inv_shift = geom_powers(bb.inv_s(GENERATOR), 1 << log_big)
-    up = lambda v: torch.from_numpy(np.asarray(v, np.int64)).to(device)
+    up = lambda v: bb.upload(np.asarray(v, np.int64), device)
     return {"sels": {k: up(v) for k, v in sels.items()},
             "inv_zh": up(inv_zh), "inv_shift": up(inv_shift)}
 
@@ -911,8 +860,8 @@ def _dag_inputs(builder, pv, r, gamma, alpha, cum, device):
     from ..logup.trace import interaction_batches
     n_total = len(builder.constraints) + len(interaction_batches(builder)) + 3
     apows = host_pcs.ext_powers(alpha, n_total)
-    weights = torch.from_numpy(
-        np.ascontiguousarray(apows[::-1]).astype(np.int64)).to(device)
+    weights = bb.upload(np.ascontiguousarray(apows[::-1]).astype(np.int64),
+                        device)
     return (ext_scalar_dev(r, device),
             gamma_pows_dev(gamma, _max_values(builder), device),
             ext_scalar_dev(cum, device), weights)
@@ -1052,9 +1001,9 @@ def _eval_coeffs(coeffs, zp):
 
 @lru_cache(maxsize=None)
 def _xs_dev(log_h: int, device: torch.device):
-    return torch.from_numpy(geom_powers(
+    return bb.upload(geom_powers(
         bb.two_adic_generator_s(log_h), 1 << log_h, GENERATOR
-    ).astype(np.int64)).to(device)
+    ).astype(np.int64), device)
 
 
 def _inv_xz(xs, z_dev):
@@ -1115,7 +1064,7 @@ def _inv_2x_dev(log_n: int, shift: int, device: torch.device):
     from .fri import _inv_x_half
     inv_x = _inv_x_half(log_n, shift)
     inv_2x = (inv_x * np.uint64(_TWO_INV)) % np.uint64(P)
-    return torch.from_numpy(inv_2x.astype(np.int64)).to(device)
+    return bb.upload(inv_2x.astype(np.int64), device)
 
 
 def _fri_host_tail_log() -> int:
@@ -1145,8 +1094,27 @@ def device_fri_prove(codewords: Dict[int, object], config: FriConfig,
     on_host = isinstance(current, np.ndarray)
     paired = False                  # a device codeword as its pair matrix
 
-    while log_n > config.log_blowup:
-        if not on_host and log_n <= tail_log:
+    # the device layers: commit each layer's pairs, fold on the card
+    with span("fri.commit"):
+        while log_n > config.log_blowup and not on_host and \
+                log_n > tail_log:
+            # the first device layer makes its pairs; fri_fold writes every
+            # later layer's
+            pair = current if paired else pairs(current)
+            tree = dtree_commit([pair])
+            layer_trees.append(tree)
+            challenger.observe_many(tree.root)
+            beta = challenger.sample_ext()
+            # the fold adds the input codeword of the next height
+            current = fri_fold(pair, beta, layer_shift(max_log, layer),
+                               codewords.get(log_n - 1))
+            paired = True
+            log_n -= 1
+            layer += 1
+
+    # the host tail: one download, the last layers, the final polynomial
+    with span("fri.tail"):
+        if not on_host and log_n > config.log_blowup:
             # one transfer: live codeword (unpaired) + all remaining input
             # codewords
             live = [current[:, :4], current[:, 4:]] if paired else [current]
@@ -1161,74 +1129,66 @@ def device_fri_prove(codewords: Dict[int, object], config: FriConfig,
                 codewords[k] = joined[off:off + n_rows]
                 off += n_rows
             on_host, paired = True, False
-        if on_host:
+        while log_n > config.log_blowup:
             tree = host_merkle.commit([_pair_matrix(current)])
             layer_trees.append(tree)
             challenger.observe_many(tree.root)
             beta = challenger.sample_ext()
             current = fold_codeword(current, beta, log_n,
                                     layer_shift(max_log, layer))
-        else:
-            # the first device layer makes its pairs; fri_fold writes every
-            # later layer's
-            pair = current if paired else pairs(current)
-            tree = dtree_commit([pair])
-            layer_trees.append(tree)
-            challenger.observe_many(tree.root)
-            beta = challenger.sample_ext()
-            # the fold adds the input codeword of the next height
-            current = fri_fold(pair, beta, layer_shift(max_log, layer),
-                               codewords.get(log_n - 1))
-            paired = True
-        log_n -= 1
-        layer += 1
-        if on_host and log_n in codewords:
-            add = codewords[log_n]
-            if isinstance(add, torch.Tensor):
-                add = bb.to_numpy(add)
-            current = E_np.eadd(current, np.asarray(add, np.uint64))
-    final_rows = current if isinstance(current, np.ndarray) \
-        else bb.to_numpy(unpair(current) if paired else current)
-    final = tuple(int(x) for x in final_rows[0])
-    assert all(tuple(int(x) for x in row) == final for row in final_rows), \
-        "FRI final polynomial is not constant - inputs exceeded degree bound"
-    challenger.observe_many(final)
-    pow_witness = challenger.grind(config.pow_bits)
+            log_n -= 1
+            layer += 1
+            if log_n in codewords:
+                add = codewords[log_n]
+                if isinstance(add, torch.Tensor):
+                    add = bb.to_numpy(add)
+                current = E_np.eadd(current, np.asarray(add, np.uint64))
+        final_rows = current if isinstance(current, np.ndarray) \
+            else bb.to_numpy(unpair(current) if paired else current)
+        final = tuple(int(x) for x in final_rows[0])
+        assert all(tuple(int(x) for x in row) == final
+                   for row in final_rows), \
+            "FRI final polynomial is not constant - inputs exceeded degree " \
+            "bound"
+        challenger.observe_many(final)
+    with span("fri.pow"):
+        pow_witness = challenger.grind(config.pow_bits)
 
-    indices = [challenger.sample_bits(max_log)
-               for _ in range(config.num_queries)]
-    # batch-gather the query openings layer by layer: all DEVICE layers'
-    # openings ride one transfer; host-tail layers open in numpy
-    per_layer_idx: List[List[int]] = []
-    idxs = list(indices)
-    size = 1 << max_log
-    for tree in layer_trees:
-        half = size // 2
-        js = [i % half for i in idxs]
-        per_layer_idx.append(js)
-        idxs = js
-        size = half
-    dev_reqs = [(t, js) for t, js in zip(layer_trees, per_layer_idx)
-                if isinstance(t, DTree)]
-    dev_opened = iter(dtree_open_many_batched(dev_reqs))
-    rows_l: list = []
-    paths_l: list = []
-    for tree, js in zip(layer_trees, per_layer_idx):
-        if isinstance(tree, DTree):
-            rows, paths = next(dev_opened)
-            rows_l.append(rows.tolist())
-            paths_l.append(np.ascontiguousarray(paths, np.uint32))
-        else:
-            openings = [host_merkle.open_at(tree, j) for j in js]
-            rows_l.append([o.rows[0] for o in openings])
-            paths_l.append(np.asarray([o.path for o in openings],
-                                      np.uint32))
-    queries = []
-    for qi in range(config.num_queries):
-        steps = []
-        for li in range(len(layer_trees)):
-            steps.append(FriQueryStep(rows_l[li][qi], paths_l[li][qi]))
-        queries.append(FriQuery(steps))
+    with span("queries", each=True):
+        indices = [challenger.sample_bits(max_log)
+                   for _ in range(config.num_queries)]
+        # batch-gather the query openings layer by layer: all DEVICE
+        # layers' openings ride one transfer; host-tail layers open in numpy
+        per_layer_idx: List[List[int]] = []
+        idxs = list(indices)
+        size = 1 << max_log
+        for tree in layer_trees:
+            half = size // 2
+            js = [i % half for i in idxs]
+            per_layer_idx.append(js)
+            idxs = js
+            size = half
+        dev_reqs = [(t, js) for t, js in zip(layer_trees, per_layer_idx)
+                    if isinstance(t, DTree)]
+        dev_opened = iter(dtree_open_many_batched(dev_reqs))
+        rows_l: list = []
+        paths_l: list = []
+        for tree, js in zip(layer_trees, per_layer_idx):
+            if isinstance(tree, DTree):
+                rows, paths = next(dev_opened)
+                rows_l.append(rows.tolist())
+                paths_l.append(np.ascontiguousarray(paths, np.uint32))
+            else:
+                openings = [host_merkle.open_at(tree, j) for j in js]
+                rows_l.append([o.rows[0] for o in openings])
+                paths_l.append(np.asarray([o.path for o in openings],
+                                          np.uint32))
+        queries = []
+        for qi in range(config.num_queries):
+            steps = []
+            for li in range(len(layer_trees)):
+                steps.append(FriQueryStep(rows_l[li][qi], paths_l[li][qi]))
+            queries.append(FriQuery(steps))
     proof = FriProof([t.root for t in layer_trees], final,
                      pow_witness, queries, indices)
     return proof, layer_trees
@@ -1263,124 +1223,128 @@ def device_open_rounds(rounds: List[DRound],
     # of its matrices' points, every group of every round in one
     # open_eval_groups call (one launch), then scatter back per matrix. All
     # (group, point) evaluations ride ONE device->host transfer.
-    t0 = _time.perf_counter()
-    groups, pending = [], []               # (coeffs, zs); (ri, gi, z, w)
-    for ri, (rnd, rnd_points) in enumerate(zip(rounds, points)):
-        for gi, ((log_h, idxs), gcoeffs) in enumerate(
-                zip(rnd.groups, rnd.group_coeffs)):
-            zs = _group_points(rnd, rnd_points, idxs)
-            groups.append((gcoeffs, zs))
-            pending += [(ri, gi, z, int(gcoeffs.shape[1])) for z in zs]
-    if groups:
-        joined = bb.to_numpy(open_eval_groups(groups))
-    t0 = _tlog("    opened-values eval+transfer", t0)
-    evals: Dict[tuple, list] = {}
-    off = 0
-    for ri, gi, z, w in pending:
-        evals[(ri, gi, z)] = [tuple(row)
-                              for row in joined[off:off + w].tolist()]
-        off += w
+    with span("open.eval"):
+        groups, pending = [], []           # (coeffs, zs); (ri, gi, z, w)
+        for ri, (rnd, rnd_points) in enumerate(zip(rounds, points)):
+            for gi, ((log_h, idxs), gcoeffs) in enumerate(
+                    zip(rnd.groups, rnd.group_coeffs)):
+                zs = _group_points(rnd, rnd_points, idxs)
+                groups.append((gcoeffs, zs))
+                pending += [(ri, gi, z, int(gcoeffs.shape[1])) for z in zs]
+        if groups:
+            joined = bb.to_numpy(open_eval_groups(groups))
 
-    opened, values = [], []
-    for ri, (rnd, rnd_points) in enumerate(zip(rounds, points)):
-        rv = [[None] * len(pts) for pts in rnd_points]
-        for gi, (log_h, idxs) in enumerate(rnd.groups):
-            for z in _group_points(rnd, rnd_points, idxs):
-                ys_all = evals[(ri, gi, z)]
+    with span("open.host"):
+        evals: Dict[tuple, list] = {}
+        off = 0
+        for ri, gi, z, w in pending:
+            evals[(ri, gi, z)] = [tuple(row)
+                                  for row in joined[off:off + w].tolist()]
+            off += w
+
+        opened, values = [], []
+        for ri, (rnd, rnd_points) in enumerate(zip(rounds, points)):
+            rv = [[None] * len(pts) for pts in rnd_points]
+            for gi, (log_h, idxs) in enumerate(rnd.groups):
+                for z in _group_points(rnd, rnd_points, idxs):
+                    ys_all = evals[(ri, gi, z)]
+                    off = 0
+                    for i in idxs:
+                        w = rnd.widths[i]
+                        # a point list may repeat a point (h=1: zeta*g ==
+                        # zeta)
+                        for pi, zp in enumerate(rnd_points[i]):
+                            if zp == z:
+                                rv[i][pi] = ys_all[off:off + w]
+                        off += w
+            flat = []
+            for mv in rv:                  # transcript order: (mat, point)
+                for ys in mv:
+                    for y in ys:
+                        flat.extend(y)
+            challenger.observe_many(flat)  # one absorb call per round
+            opened.append(rv)
+            values.extend(flat)
+
+        alpha = challenger.sample_ext()
+
+        # alpha-power offsets in host (round, mat, point) order: the place
+        # of the (round, mat, point)'s first opened value in transcript
+        # order
+        offsets: Dict[tuple, int] = {}
+        alpha_cnt = 0
+        for ri, (rnd, rnd_points) in enumerate(zip(rounds, points)):
+            for mi, pts in enumerate(rnd_points):
+                w = rnd.widths[mi]
+                for pi in range(len(pts)):
+                    offsets[(ri, mi, pi)] = alpha_cnt
+                    alpha_cnt += w
+        # every opened value times its alpha power in one vectorised pass;
+        # y_alpha of a (round, mat, point) is a difference of running sums
+        apows = host_pcs.ext_powers(alpha, alpha_cnt)
+        run = np.zeros((alpha_cnt + 1, 4), np.uint64)
+        if alpha_cnt:
+            ys = np.asarray(values, np.uint64).reshape(-1, 4)
+            np.cumsum(E_np.emul(ys, apows), axis=0, out=run[1:])
+
+        # per group: its LDE, its points, a weight segment (k, first
+        # column, width, alpha^o) a matrix and point (duplicate points of a
+        # matrix fold in as summed segments: (f*a1 - y1)/(x-z) + (f*a2 -
+        # y2)/(x-z) == (f*(a1+a2) - (y1+y2))/(x-z)) and y_alpha per point;
+        # the kernel makes the weights and reduces every group in one
+        # launch
+        groups = []
+        for ri, (rnd, rnd_points) in enumerate(zip(rounds, points)):
+            for gi, (log_h, idxs) in enumerate(rnd.groups):
+                zs = _group_points(rnd, rnd_points, idxs)
+                segments = []
+                y_alpha = np.zeros((len(zs), 4), np.uint64)
                 off = 0
                 for i in idxs:
                     w = rnd.widths[i]
-                    # a point list may repeat a point (h=1: zeta*g == zeta)
                     for pi, zp in enumerate(rnd_points[i]):
-                        if zp == z:
-                            rv[i][pi] = ys_all[off:off + w]
+                        o = offsets[(ri, i, pi)]
+                        k = zs.index(zp)
+                        if w:
+                            segments.append((k, off, w, tuple(
+                                int(v) for v in apows[o])))
+                        y_alpha[k] = (y_alpha[k] + run[o + w] - run[o]) % \
+                            np.uint64(P)
                     off += w
-        flat = []
-        for mv in rv:                      # transcript order: (mat, point)
-            for ys in mv:
-                for y in ys:
-                    flat.extend(y)
-        challenger.observe_many(flat)      # one absorb call per round
-        opened.append(rv)
-        values.extend(flat)
-
-    alpha = challenger.sample_ext()
-
-    # alpha-power offsets in host (round, mat, point) order: the place of
-    # the (round, mat, point)'s first opened value in transcript order
-    offsets: Dict[tuple, int] = {}
-    alpha_cnt = 0
-    for ri, (rnd, rnd_points) in enumerate(zip(rounds, points)):
-        for mi, pts in enumerate(rnd_points):
-            w = rnd.widths[mi]
-            for pi in range(len(pts)):
-                offsets[(ri, mi, pi)] = alpha_cnt
-                alpha_cnt += w
-    # every opened value times its alpha power in one vectorised pass;
-    # y_alpha of a (round, mat, point) is a difference of running sums
-    apows = host_pcs.ext_powers(alpha, alpha_cnt)
-    run = np.zeros((alpha_cnt + 1, 4), np.uint64)
-    if alpha_cnt:
-        ys = np.asarray(values, np.uint64).reshape(-1, 4)
-        np.cumsum(E_np.emul(ys, apows), axis=0, out=run[1:])
-
-    # per group: its LDE, its points, a weight segment (k, first column,
-    # width, alpha^o) a matrix and point (duplicate points of a matrix
-    # fold in as summed segments: (f*a1 - y1)/(x-z) + (f*a2 - y2)/(x-z)
-    # == (f*(a1+a2) - (y1+y2))/(x-z)) and y_alpha per point; the
-    # kernel makes the weights and reduces every group in one launch
-    groups = []
-    for ri, (rnd, rnd_points) in enumerate(zip(rounds, points)):
-        for gi, (log_h, idxs) in enumerate(rnd.groups):
-            zs = _group_points(rnd, rnd_points, idxs)
-            segments = []
-            y_alpha = np.zeros((len(zs), 4), np.uint64)
-            off = 0
-            for i in idxs:
-                w = rnd.widths[i]
-                for pi, zp in enumerate(rnd_points[i]):
-                    o = offsets[(ri, i, pi)]
-                    k = zs.index(zp)
-                    if w:
-                        segments.append((k, off, w, tuple(
-                            int(v) for v in apows[o])))
-                    y_alpha[k] = (y_alpha[k] + run[o + w] - run[o]) % \
-                        np.uint64(P)
-                off += w
-            groups.append((rnd.trees[gi][1].concat, zs, segments, y_alpha))
+                groups.append((rnd.trees[gi][1].concat, zs, segments,
+                               y_alpha))
     ro: Dict[int, torch.Tensor] = {}
-    if groups:
-        ro = open_reduce_groups(groups, alpha)
+    with span("open.reduce"):
+        if groups:
+            ro = open_reduce_groups(groups, alpha)
 
-    t0 = _tlog("    reduced codewords (dispatch)", t0)
     fri_proof, _layer_trees = device_fri_prove(ro, config, challenger)
-    t0 = _tlog("    fri prove", t0)
 
     # round-tree query openings: every round's every tree on one transfer
-    query_openings: List[list] = [[] for _ in fri_proof.query_indices]
-    reqs = [(tree, [q % (1 << log_H) for q in fri_proof.query_indices])
-            for rnd in rounds for log_H, tree in rnd.trees]
-    opened_trees = iter(dtree_open_many_batched(reqs))
-    for rnd in rounds:
-        per_tree_l = []
-        for log_H, tree in rnd.trees:
-            rows, paths = next(opened_trees)
-            per_tree_l.append((log_H, tree, rows.tolist(),
-                               np.ascontiguousarray(paths, np.uint32)))
-        for qi in range(len(fri_proof.query_indices)):
-            entries = []
-            for log_H, tree, rows_l, paths_a in per_tree_l:
-                row = rows_l[qi]
-                mats_rows = []
-                off = 0
-                for wdt in tree.widths:
-                    mats_rows.append(row[off:off + wdt])
-                    off += wdt
-                entries.append((log_H,
-                                host_merkle.Opening(mats_rows, paths_a[qi])))
-            query_openings[qi].append(entries)
+    with span("queries", each=True):
+        query_openings: List[list] = [[] for _ in fri_proof.query_indices]
+        reqs = [(tree, [q % (1 << log_H) for q in fri_proof.query_indices])
+                for rnd in rounds for log_H, tree in rnd.trees]
+        opened_trees = iter(dtree_open_many_batched(reqs))
+        for rnd in rounds:
+            per_tree_l = []
+            for log_H, tree in rnd.trees:
+                rows, paths = next(opened_trees)
+                per_tree_l.append((log_H, tree, rows.tolist(),
+                                   np.ascontiguousarray(paths, np.uint32)))
+            for qi in range(len(fri_proof.query_indices)):
+                entries = []
+                for log_H, tree, rows_l, paths_a in per_tree_l:
+                    row = rows_l[qi]
+                    mats_rows = []
+                    off = 0
+                    for wdt in tree.widths:
+                        mats_rows.append(row[off:off + wdt])
+                        off += wdt
+                    entries.append((log_H, host_merkle.Opening(mats_rows,
+                                                               paths_a[qi])))
+                query_openings[qi].append(entries)
 
-    _tlog("    query openings", t0)
     return host_pcs.PcsProof(opened, fri_proof, query_openings)
 
 
@@ -1406,18 +1370,20 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
     and where it generated witnesses: shard count, keep mode, the budget
     of the device's memory, the memory model's high-water of one shard
     alone (`modeled_highwater_bytes`) and of the whole prove in its keep
-    mode (`modeled_prove_bytes`), the chips, padded cells and host-clock
-    seconds of the witnesses made on the device (dispatch: the device runs
-    on asynchronously) or on the host and uploaded, and the prove's
-    launches of the Poseidon2, constraint_quotient, logup_perm_phi,
-    open_eval, open_reduce and fri_fold kernels (`kernel_launches`,
-    `quotient_launches`, `perm_launches`, `open_eval_launches`,
-    `open_reduce_launches`, `fri_fold_launches`, printed to stderr under
-    LURK_TPU_PROVE_TIMING=1, so that a CLI run reports them). On a CUDA
-    device also the measured peaks: `peak_allocated_bytes`,
-    `peak_reserved_bytes` and `phase_peaks`, one dict per phase (its
-    allocated and reserved peaks, the allocated memory at its end and the
-    model's bytes for it)."""
+    mode (`modeled_prove_bytes`), the chips and padded cells of the
+    witnesses made on the device or on the host and uploaded, the
+    host-clock seconds of the latter (`host_witness_s`), each shard's
+    chips whose perm trace and quotient take the host path
+    (`host_path_chips`), and the prove's launches of the Poseidon2,
+    constraint_quotient, logup_perm_phi, open_eval, open_reduce and
+    fri_fold kernels (`kernel_launches`, `quotient_launches`,
+    `perm_launches`, `open_eval_launches`, `open_reduce_launches`,
+    `fri_fold_launches`, printed to stderr in a recorded prove, so that a
+    CLI run reports them). On a CUDA device also the measured peaks:
+    `peak_allocated_bytes`, `peak_reserved_bytes` and `phase_peaks`, one
+    dict per phase (its allocated and reserved peaks, the allocated memory
+    at its end and the model's bytes for it). The spans of a recorded
+    prove (stark/spans.py) are added by StarkMachine.prove."""
     from ..lair.chips import chip_included
     from ..poseidon.cuda_kernel import permute_mont_cuda
     from .machine import MachineProof
@@ -1426,7 +1392,7 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
     from . import hbm
 
     device = torch.device(device) if device is not None else default_device()
-    mem = _PhasePeaks(device)
+    mem = PhasePeaks(device)
     counted = {"kernel_launches": permute_mont_cuda,
                "quotient_launches": constraint_quotient,
                "perm_launches": logup_perm_phi,
@@ -1434,53 +1400,49 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
                "open_reduce_launches": open_reduce,
                "fri_fold_launches": fri_fold}
     launches0 = {k: fn.launches for k, fn in counted.items()}
-    shards, hbm_budget = hbm.plan_shards(machine, queries, shard_config,
-                                         device)
-    pv = queries.expect_public_values()
-    stats = machine.last_device_prove = dict(
-        shards=len(shards), budget_bytes=hbm_budget,
-        modeled_highwater_bytes=max(hbm.shard_highwater_bytes(machine, s,
-                                                              device)
-                                    for s in shards),
-        device_witness_chips=0, device_witness_cells=0, device_witness_s=0.0,
-        host_witness_chips=0, host_witness_cells=0, host_witness_s=0.0)
+    with span("plan"):
+        shards, hbm_budget = hbm.plan_shards(machine, queries, shard_config,
+                                             device)
+        pv = queries.expect_public_values()
+        stats = machine.last_device_prove = dict(
+            shards=len(shards), budget_bytes=hbm_budget,
+            modeled_highwater_bytes=max(
+                hbm.shard_highwater_bytes(machine, s, device)
+                for s in shards),
+            device_witness_chips=0, device_witness_cells=0,
+            host_witness_chips=0, host_witness_cells=0, host_witness_s=0.0,
+            host_path_chips=[])
+        # Pass 1 commits every shard's main traces and absorbs the roots
+        # (the transcript requires all main commitments before any
+        # challenge). `full` keeps every shard's committed round; `light`
+        # keeps only the mats + coefficients and rebuilds LDE + trees in
+        # pass 2; `none` keeps only the roots and recommits each shard from
+        # its witness in pass 2 (device-made traces are generated again),
+        # so device memory is bounded by one shard.
+        keep_mode = hbm.keep_mode(machine, shards, hbm_budget, device)
+        keep_rounds = keep_mode == "full"
+        stats["keep_mode"] = keep_mode
+        modeled = hbm.prove_phases(machine, shards, keep_mode, device)
+        stats["modeled_prove_bytes"] = max(b for _, b in modeled)
 
     # device prep round (bit-exact vs pk: same commitment algorithm)
-    prep_round = None
-    prep_names: List[str] = []
-    if pk.prep_round is not None:
-        cached = getattr(machine, "_device_prep_round", None)
-        if cached is not None and cached[0] == device:
-            prep_round = cached[1]
-        else:
-            prep_round = dcommit(pk.prep_round.matrices, device)
-            assert prep_round.roots == pk.prep_round.roots, \
-                "device prep commitment diverged from host setup"
-            machine._device_prep_round = (device, prep_round)
-        prep_names = pk.prep_chip_names
-        for root in prep_round.roots:
-            challenger.observe_many(root)
-    challenger.observe_many(pv)
+    with span("prep"):
+        prep_round = None
+        prep_names: List[str] = []
+        if pk.prep_round is not None:
+            cached = getattr(machine, "_device_prep_round", None)
+            if cached is not None and cached[0] == device:
+                prep_round = cached[1]
+            else:
+                prep_round = dcommit(pk.prep_round.matrices, device)
+                assert prep_round.roots == pk.prep_round.roots, \
+                    "device prep commitment diverged from host setup"
+                machine._device_prep_round = (device, prep_round)
+            prep_names = pk.prep_chip_names
+            for root in prep_round.roots:
+                challenger.observe_many(root)
+        challenger.observe_many(pv)
 
-    # Pass 1: commit every shard's main traces and absorb the roots (the
-    # transcript requires all main commitments before any challenge).
-    # `full` keeps every shard's committed round; `light` keeps only the
-    # mats + coefficients and rebuilds LDE + trees in pass 2; `none` keeps
-    # only the roots and recommits each shard from its witness in pass 2
-    # (device-made traces are generated again), so device memory is
-    # bounded by one shard.
-    keep_mode = hbm.keep_mode(machine, shards, hbm_budget, device)
-    keep_rounds = keep_mode == "full"
-    stats["keep_mode"] = keep_mode
-    modeled = hbm.prove_phases(machine, shards, keep_mode, device)
-    stats["modeled_prove_bytes"] = max(b for _, b in modeled)
-    if _TIMING:
-        print(f"[prove-timing] plan: {len(shards)} shard(s), keep mode "
-              f"{keep_mode}, modeled prove "
-              f"{stats['modeled_prove_bytes'] / 2**30:.2f} GiB (one shard "
-              f"{stats['modeled_highwater_bytes'] / 2**30:.2f} GiB), "
-              f"budget {hbm_budget / 2**30:.2f} GiB{_mem_str()}",
-              file=_sys.stderr, flush=True)
     shard_chip_lists = []
     shard_roots = []
     kept_rounds = []      # per-shard DRound when keep_mode == "full"
@@ -1488,90 +1450,96 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
     shard_pendings = []   # light/none: per-shard deferred root buffers
     dev_witness = _device_witness_enabled(device)
     for shard in shards:
-        t0 = _time.perf_counter()
-        chips = [c for c in machine.chips if chip_included(c, shard)]
-        traces_np = []    # host arrays, or _DeviceGenTrace placeholders
-        mats_dev = []
-        for c in chips:
-            tc = _time.perf_counter()
-            mat = None
-            if dev_witness and c.num_rows(shard) >= _host_chip_min_rows():
-                from ..lair import device_trace
-                mat = device_trace.generate_trace_device(c, shard, device)
-            if mat is not None:
-                traces_np.append(_DeviceGenTrace(mat.shape, c, shard,
-                                                 device))
-                kind = "device"
-            else:
-                t = np.asarray(c.generate_trace(shard), np.uint64)
-                traces_np.append(t)
-                mat = bb.from_numpy(t, device)
-                kind = "host"
-            mats_dev.append(mat)
-            stats[f"{kind}_witness_chips"] += 1
-            stats[f"{kind}_witness_cells"] += mat.numel()
-            stats[f"{kind}_witness_s"] += _time.perf_counter() - tc
-        t0 = _tlog(f"shard{shard.index} witness+upload", t0, mem,
-                   f"shard{shard.index} witness")
+        k = shard.index
+        with span("witness+upload", shard=k):
+            chips = [c for c in machine.chips if chip_included(c, shard)]
+            traces_np = []    # host arrays, or _DeviceGenTrace placeholders
+            mats_dev = []
+            for c in chips:
+                mat = None
+                if dev_witness and c.num_rows(shard) >= _host_chip_min_rows():
+                    from ..lair import device_trace
+                    with span("witness.device", each=True):
+                        mat = device_trace.generate_trace_device(c, shard,
+                                                                 device)
+                if mat is not None:
+                    traces_np.append(_DeviceGenTrace(mat.shape, c, shard,
+                                                     device))
+                    kind = "device"
+                else:
+                    tc = _time.perf_counter()
+                    with span("witness.host", each=True):
+                        t = np.asarray(c.generate_trace(shard), np.uint64)
+                        with span("witness.upload", each=True):
+                            mat = bb.from_numpy(t, device)
+                    traces_np.append(t)
+                    stats["host_witness_s"] += _time.perf_counter() - tc
+                    kind = "host"
+                mats_dev.append(mat)
+                stats[f"{kind}_witness_chips"] += 1
+                stats[f"{kind}_witness_cells"] += mat.numel()
+        mem.stamp(f"shard{k} witness")
         shard_chip_lists.append((chips, traces_np))
-        rnd = dcommit(mats_dev, device, finalize=False)
-        del mats_dev
+        with span("main.commit", shard=k):
+            rnd = dcommit(mats_dev, device, finalize=False)
+            del mats_dev
+            if keep_rounds:
+                kept_rounds.append(rnd)
+            else:
+                shard_pendings.append([t.pending for _, t in rnd.trees])
+                if keep_mode == "light":
+                    kept_light.append((rnd.matrices, rnd.groups,
+                                       rnd.group_coeffs, rnd.widths,
+                                       rnd.log_heights))
+            del rnd
+        mem.stamp(f"shard{k} main commit")
+    with span("roots"):
         if keep_rounds:
-            kept_rounds.append(rnd)
+            finalize_dtrees([t for rnd in kept_rounds for _, t in rnd.trees])
+            for rnd in kept_rounds:
+                shard_roots.append(rnd.roots)
+                for root in rnd.roots:
+                    challenger.observe_many(root)
         else:
-            shard_pendings.append([t.pending for _, t in rnd.trees])
-            if keep_mode == "light":
-                kept_light.append((rnd.matrices, rnd.groups,
-                                   rnd.group_coeffs, rnd.widths,
-                                   rnd.log_heights))
-        t0 = _tlog(f"shard{shard.index} main dcommit (deferred)", t0, mem,
-                   f"shard{shard.index} main commit")
-        del rnd
-    t0 = _time.perf_counter()
-    if keep_rounds:
-        finalize_dtrees([t for rnd in kept_rounds for _, t in rnd.trees])
-        for rnd in kept_rounds:
-            shard_roots.append(rnd.roots)
-            for root in rnd.roots:
-                challenger.observe_many(root)
-    else:
-        flat = [p for sp in shard_pendings for p in sp]
-        roots_iter = iter(_roots_from_pendings(flat))
-        for sp in shard_pendings:
-            roots = [next(roots_iter) for _ in sp]
-            shard_roots.append(roots)
-            for root in roots:
-                challenger.observe_many(root)
-        del shard_pendings
-    _tlog("all-shard root transfer", t0)
+            flat = [p for sp in shard_pendings for p in sp]
+            roots_iter = iter(_roots_from_pendings(flat))
+            for sp in shard_pendings:
+                roots = [next(roots_iter) for _ in sp]
+                shard_roots.append(roots)
+                for root in roots:
+                    challenger.observe_many(root)
+            del shard_pendings
 
     shard_proofs = []
+    min_rows = _host_chip_min_rows()
     for si, (shard, (chips, traces_np), roots) in enumerate(zip(
             shards, shard_chip_lists, shard_roots)):
-        t0 = _time.perf_counter()
+        k = shard.index
+        stats["host_path_chips"].append(
+            sum(int(t.shape[0]) < min_rows for t in traces_np))
         if keep_rounds:
             main_round = kept_rounds[si]
-        elif keep_mode == "light":
-            main_round = recommit_from_coeffs(kept_light[si])
-            assert main_round.roots == roots, \
-                "coeff-rebuilt commitment diverged from pass 1"
-            kept_light[si] = None
-            t0 = _tlog(f"shard{shard.index} lde-recommit", t0, mem,
-                       f"shard{shard.index} main recommit")
         else:
-            # recommit (deterministic) from the witness: one extra commit
-            # per shard for device memory bounded by a single shard
-            main_round = dcommit([t.regen() if isinstance(t, _DeviceGenTrace)
-                                  else t for t in traces_np], device)
-            assert main_round.roots == roots, \
-                "device main commitment is not deterministic"
-            t0 = _tlog(f"shard{shard.index} recommit", t0, mem,
-                       f"shard{shard.index} main recommit")
+            with span("recommit", shard=k):
+                if keep_mode == "light":
+                    main_round = recommit_from_coeffs(kept_light[si])
+                    assert main_round.roots == roots, \
+                        "coeff-rebuilt commitment diverged from pass 1"
+                    kept_light[si] = None
+                else:
+                    # recommit (deterministic) from the witness: one extra
+                    # commit per shard for device memory bounded by a
+                    # single shard
+                    main_round = dcommit(
+                        [t.regen() if isinstance(t, _DeviceGenTrace) else t
+                         for t in traces_np], device)
+                    assert main_round.roots == roots, \
+                        "device main commitment is not deterministic"
+            mem.stamp(f"shard{k} main recommit")
         ch = challenger.copy()
         shard_proofs.append(_device_prove_shard(
             machine, pk, prep_round, prep_names, shard, chips, traces_np,
             main_round, pv, ch, mem))
-        _tlog(f"shard{shard.index} prove_shard total", t0)
         if keep_rounds:
             kept_rounds[si] = None        # fully consumed: free its trees
         del main_round
@@ -1584,8 +1552,13 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
                  modeled=want.get(ph)) for ph, a, r, left in mem.peaks]
         stats["peak_allocated_bytes"] = max(p[1] for p in mem.peaks)
         stats["peak_reserved_bytes"] = max(p[2] for p in mem.peaks)
-    if _TIMING:
-        print(f"[prove-timing] device_prove: {len(shards)} shard(s), "
+    if recording():
+        g = 1 << 30
+        print(f"[prove-timing] device_prove: {len(shards)} shard(s), keep "
+              f"mode {keep_mode}, modeled prove "
+              f"{stats['modeled_prove_bytes'] / g:.2f} GiB (one shard "
+              f"{stats['modeled_highwater_bytes'] / g:.2f} GiB), budget "
+              f"{hbm_budget / g:.2f} GiB, "
               f"{stats['kernel_launches']} Poseidon2 kernel launches, "
               f"{stats['quotient_launches']} constraint_quotient launches, "
               f"{stats['perm_launches']} logup_perm_phi launches, "
@@ -1648,19 +1621,20 @@ def _host_chip_min_rows() -> int:
 
 def _device_prove_shard(machine, pk, prep_round, prep_names, shard, chips,
                         traces_np, main_round: DRound, pv, ch,
-                        mem: Optional[_PhasePeaks] = None):
+                        mem: Optional[PhasePeaks] = None):
     from ..lair.chips import chip_preprocessed
     from ..logup.trace import build_permutation_trace
     from .machine import ShardProof, ChipProof, host_quotient_chunk
     from ..field import ext as ext_scalar
     from ..field.ntt import lde as ntt_lde
 
+    k = shard.index
+    stamp = mem.stamp if mem is not None else (lambda phase: None)
     builders = [machine.builder_for(c) for c in chips]
     has_preps = [chip_preprocessed(c) is not None for c in chips]
     min_rows = _host_chip_min_rows()
     on_host = [int(t.shape[0]) < min_rows for t in traces_np]
     device = main_round.matrices[0].device
-    t0 = _time.perf_counter()
 
     r = ch.sample_ext()
     gamma = ch.sample_ext()
@@ -1671,48 +1645,51 @@ def _device_prove_shard(machine, pk, prep_round, prep_names, shard, chips,
     for i, (chip, builder, main_dev, has_prep) in enumerate(zip(
             chips, builders, main_round.matrices, has_preps)):
         if on_host[i]:
-            prep_np = None
+            with span("perm.host", shard=k, each=True):
+                prep_np = None
+                if has_prep:
+                    pidx = prep_names.index(chip.name)
+                    prep_np = pk.prep_round.matrices[pidx]
+                perm, cum = build_permutation_trace(builder, traces_np[i],
+                                                    prep_np, pv, r, gamma)
+                perm_mats.append(perm)
+                cum_slots[i] = cum
+            continue
+        with span("perm.device", shard=k, each=True):
+            prep_dev = None
             if has_prep:
                 pidx = prep_names.index(chip.name)
-                prep_np = pk.prep_round.matrices[pidx]
-            perm, cum = build_permutation_trace(builder, traces_np[i],
-                                                prep_np, pv, r, gamma)
+                prep_dev = prep_round.matrices[pidx]
+            plan = plan_for(builder) if _generic_perm_enabled() else None
+            if plan is not None and builder.interactions:
+                perm, cum_dev = device_perm_trace_plan(plan, main_dev,
+                                                       prep_dev, pv, r,
+                                                       gamma)
+            else:
+                perm, cum_dev = device_perm_trace_dev(builder, main_dev,
+                                                      prep_dev, pv, r, gamma)
             perm_mats.append(perm)
-            cum_slots[i] = cum
-            continue
-        prep_dev = None
-        if has_prep:
-            pidx = prep_names.index(chip.name)
-            prep_dev = prep_round.matrices[pidx]
-        plan = plan_for(builder) if _generic_perm_enabled() else None
-        if plan is not None and builder.interactions:
-            perm, cum_dev = device_perm_trace_plan(plan, main_dev, prep_dev,
-                                                   pv, r, gamma)
-        else:
-            perm, cum_dev = device_perm_trace_dev(builder, main_dev,
-                                                  prep_dev, pv, r, gamma)
-        perm_mats.append(perm)
-        cum_slots[i] = len(cum_devs)
-        cum_devs.append(cum_dev)
-    t0 = _tlog("  perm traces (dispatch+host)", t0)
+            cum_slots[i] = len(cum_devs)
+            cum_devs.append(cum_dev)
     # one device->host transfer for all device cumulative sums
-    dev_cums = bb.to_numpy(torch.stack(cum_devs)) if cum_devs else None
-    cums = [cum_slots[i] if on_host[i]
-            else tuple(int(x) for x in dev_cums[cum_slots[i]])
-            for i in range(len(chips))]
-    del cum_devs, cum_slots
-    t0 = _tlog("  cums transfer (drains perm)", t0, mem,
-               f"shard{shard.index} perm trace")
-    main_round.release_mats()
-    perm_round = dcommit(perm_mats, device)
-    perm_mats = [m if on_host[i] else None
-                 for i, m in enumerate(perm_mats)]
-    perm_round.release_mats()
-    t0 = _tlog("  perm dcommit", t0, mem, f"shard{shard.index} perm commit")
-    for root in perm_round.roots:
-        ch.observe_many(root)
-    for cum in cums:
-        ch.observe_many(cum)
+    with span("cums", shard=k):
+        dev_cums = bb.to_numpy(torch.stack(cum_devs)) if cum_devs else None
+        cums = [cum_slots[i] if on_host[i]
+                else tuple(int(x) for x in dev_cums[cum_slots[i]])
+                for i in range(len(chips))]
+        del cum_devs, cum_slots
+    stamp(f"shard{k} perm trace")
+    with span("perm.commit", shard=k):
+        main_round.release_mats()
+        perm_round = dcommit(perm_mats, device)
+        perm_mats = [m if on_host[i] else None
+                     for i, m in enumerate(perm_mats)]
+        perm_round.release_mats()
+        for root in perm_round.roots:
+            ch.observe_many(root)
+        for cum in cums:
+            ch.observe_many(cum)
+    stamp(f"shard{k} perm commit")
 
     alpha = ch.sample_ext()
 
@@ -1721,73 +1698,74 @@ def _device_prove_shard(machine, pk, prep_round, prep_names, shard, chips,
             zip(chips, builders, has_preps)):
         log_h = main_round.log_heights[i]
         if on_host[i]:
+            with span("quotient.host", shard=k, each=True):
+                prep_lde = None
+                if has_prep:
+                    pidx = prep_names.index(chip.name)
+                    prep_lde = pk.prep_round.ldes[pidx]
+                main_lde = np.asarray(
+                    ntt_lde(traces_np[i].astype(np.uint32), LOG_BLOWUP),
+                    np.uint64)
+                perm_lde = np.asarray(
+                    ntt_lde(np.asarray(perm_mats[i], np.uint32),
+                            LOG_BLOWUP), np.uint64)
+                quotient_mats.append(host_quotient_chunk(
+                    builder, main_lde, prep_lde, perm_lde, pv, r, gamma,
+                    alpha, cums[i], log_h, name=chip.name))
+            continue
+        with span("quotient.device", shard=k, each=True):
             prep_lde = None
             if has_prep:
                 pidx = prep_names.index(chip.name)
-                prep_lde = pk.prep_round.ldes[pidx]
-            main_lde = np.asarray(
-                ntt_lde(traces_np[i].astype(np.uint32), LOG_BLOWUP),
-                np.uint64)
-            perm_lde = np.asarray(
-                ntt_lde(np.asarray(perm_mats[i], np.uint32), LOG_BLOWUP),
-                np.uint64)
-            quotient_mats.append(host_quotient_chunk(
-                builder, main_lde, prep_lde, perm_lde, pv, r, gamma,
-                alpha, cums[i], log_h, name=chip.name))
-            continue
-        prep_lde = None
-        if has_prep:
-            pidx = prep_names.index(chip.name)
-            prep_lde = prep_round.lde(pidx)
-        chunk = device_quotient_chunk(
-            builder, main_round.lde(i), prep_lde, perm_round.lde(i),
-            pv, r, gamma, alpha, cums[i], log_h)
-        quotient_mats.append(chunk)
-    t0 = _tlog("  quotient chunks (dispatch+host)", t0, mem,
-               f"shard{shard.index} quotient")
-    quotient_round = dcommit(quotient_mats, device)
-    t0 = _tlog("  quotient dcommit", t0, mem,
-               f"shard{shard.index} quotient commit")
+                prep_lde = prep_round.lde(pidx)
+            chunk = device_quotient_chunk(
+                builder, main_round.lde(i), prep_lde, perm_round.lde(i),
+                pv, r, gamma, alpha, cums[i], log_h)
+            quotient_mats.append(chunk)
+    stamp(f"shard{k} quotient")
+    with span("quotient.commit", shard=k):
+        quotient_round = dcommit(quotient_mats, device)
+        for root in quotient_round.roots:
+            ch.observe_many(root)
+    stamp(f"shard{k} quotient commit")
     del quotient_mats
-    for root in quotient_round.roots:
-        ch.observe_many(root)
-
     quotient_round.release_mats()
 
-    zeta = ch.sample_ext()
-    zeta2 = ext_scalar.emul_s(zeta, zeta)
+    with span("points", shard=k):
+        zeta = ch.sample_ext()
+        zeta2 = ext_scalar.emul_s(zeta, zeta)
 
-    rounds = []
-    points = []
-    if prep_round is not None:
-        rounds.append(prep_round)
-        prep_points = []
-        for pidx, pname in enumerate(prep_names):
-            chip_i = next((j for j, c in enumerate(chips)
-                           if c.name == pname), None)
-            if chip_i is None:
-                prep_points.append([zeta])
-            else:
-                log_h = main_round.log_heights[chip_i]
-                g = bb.two_adic_generator_s(log_h)
-                prep_points.append([zeta, ext_scalar.emul_s(zeta,
-                                                            (g, 0, 0, 0))])
-        points.append(prep_points)
-    main_points = []
-    for log_h in main_round.log_heights:
-        g = bb.two_adic_generator_s(log_h) if log_h else 1
-        zg = ext_scalar.emul_s(zeta, (g, 0, 0, 0))
-        main_points.append([zeta, zg])
-    rounds.append(main_round)
-    points.append(main_points)
-    rounds.append(perm_round)
-    points.append([list(p) for p in main_points])
-    rounds.append(quotient_round)
-    points.append([[zeta2] for _ in quotient_round.widths])
+        rounds = []
+        points = []
+        if prep_round is not None:
+            rounds.append(prep_round)
+            prep_points = []
+            for pidx, pname in enumerate(prep_names):
+                chip_i = next((j for j, c in enumerate(chips)
+                               if c.name == pname), None)
+                if chip_i is None:
+                    prep_points.append([zeta])
+                else:
+                    log_h = main_round.log_heights[chip_i]
+                    g = bb.two_adic_generator_s(log_h)
+                    prep_points.append([zeta, ext_scalar.emul_s(
+                        zeta, (g, 0, 0, 0))])
+            points.append(prep_points)
+        main_points = []
+        for log_h in main_round.log_heights:
+            g = bb.two_adic_generator_s(log_h) if log_h else 1
+            zg = ext_scalar.emul_s(zeta, (g, 0, 0, 0))
+            main_points.append([zeta, zg])
+        rounds.append(main_round)
+        points.append(main_points)
+        rounds.append(perm_round)
+        points.append([list(p) for p in main_points])
+        rounds.append(quotient_round)
+        points.append([[zeta2] for _ in quotient_round.widths])
 
-    t0 = _tlog("  pre-open (points setup)", t0)
-    pcs_proof = device_open_rounds(rounds, points, machine.config, ch)
-    _tlog("  open+fri", t0, mem, f"shard{shard.index} open")
+    with span("open+fri", shard=k):
+        pcs_proof = device_open_rounds(rounds, points, machine.config, ch)
+    stamp(f"shard{k} open")
 
     chip_proofs = [
         ChipProof(c.name, main_round.log_heights[i], cums[i])

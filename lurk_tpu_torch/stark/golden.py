@@ -172,9 +172,8 @@ def ackermann_machine(m: int, n: int, config):
 def _proved(machine, pk, vk, queries, device, shard_config=None):
     from ..utils import codec
     from .challenger import Challenger
-    from .device_prover import device_prove
-    proof = device_prove(machine, pk, queries, Challenger(), shard_config,
-                         device=device)
+    proof = machine.prove(pk, queries, Challenger(), shard_config,
+                          device=True if device is None else device)
     return machine, vk, proof, hashlib.sha256(codec.encode(proof)).hexdigest()
 
 

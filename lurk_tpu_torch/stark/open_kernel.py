@@ -538,7 +538,7 @@ def reduce_args(ro: Optional[torch.Tensor], lde: torch.Tensor,
 def _weight_rows(w, device) -> torch.Tensor:
     if isinstance(w, torch.Tensor):
         return w.to(device=device, dtype=I64) % P
-    return torch.from_numpy(np.asarray(w, np.int64) % P).to(device)
+    return bb.upload(np.asarray(w, np.int64) % P, device)
 
 
 def reduce_plain(ro, lde, zs, weights, y_alpha,

@@ -51,6 +51,7 @@ from ..field import babybear as bb
 from ..field import ext as ext_t
 from ..utils import cuda_build
 from . import device_prover as dp
+from . import spans
 
 P = bb.P
 I32 = bb.I32
@@ -161,6 +162,8 @@ def _pack(device, arrays) -> Dict[str, Ptr]:
     for (_, a), off in zip(arrays, offs):
         flat = np.asarray(a).reshape(-1)
         view[off:off + len(flat)] = flat
+    if cuda:
+        spans.count("h2d_bytes", host.nbytes)
     buf = host.to(device, non_blocking=True) if cuda else host
     return {name: Ptr(buf, off) for (name, _), off in zip(arrays, offs)}
 
@@ -663,7 +666,7 @@ def _fingerprints(X, a):
 
 
 def _on(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(v, np.int64)).to(device)
+    return {k: bb.upload(np.ascontiguousarray(v, np.int64), device)
             for k, v in arrays.items()}
 
 

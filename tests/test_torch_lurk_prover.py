@@ -25,10 +25,11 @@ from lurk_tpu.lair.execute import ShardingConfig as JShardingConfig
 from lurk_tpu.stark.challenger import Challenger as JChallenger
 from lurk_tpu.stark.fri import FriConfig as JFriConfig
 from lurk_tpu.utils import codec as jcodec
-from lurk_tpu_torch.stark import golden, hbm
+from lurk_tpu_torch.stark import golden, hbm, spans
 from lurk_tpu_torch.stark.challenger import Challenger
 from lurk_tpu_torch.stark.fri import FriConfig
 from lurk_tpu_torch.utils import codec
+from tests.test_torch_spans import check_nesting, tally_copies
 
 # The suite runs in parallel worker processes; torch's default of one
 # OpenMP thread per core oversubscribes the cores and stalls every worker.
@@ -60,12 +61,29 @@ def _port_machine():
 
 
 def test_one_shard_device_witness_proof_matches_lurk_tpu(monkeypatch):
+    """Proved with the recorder on (stark/spans.py): the bytes are the
+    golden's, the spans nest and cover the prove, and the copy counters
+    equal the bytes the copy helpers moved."""
     monkeypatch.setenv("LURK_TPU_DEVICE_WITNESS", "1")
-    machine, vk, proof, digest = golden.lurk_proof("cpu", None,
-                                                   _port_machine())
+    moved = tally_copies(monkeypatch)
+    spans.enable(True)
+    try:
+        machine, vk, proof, digest = golden.lurk_proof("cpu", None,
+                                                       _port_machine())
+    finally:
+        spans.enable(None)
     stats = machine.last_device_prove
     assert stats["shards"] == 1 and stats["keep_mode"] == "full"
     assert stats["device_witness_chips"] >= 16
+    assert stats["counters"] == moved
+    rows = stats["spans"]
+    check_nesting(rows)
+    names = {r["name"] for r in rows}
+    assert {"witness.host", "witness.device", "witness.upload"} <= names
+    # the witness phase is its three leaves
+    (phase,) = [r for r in rows if r["name"] == "witness+upload"]
+    assert phase["exclusive_s"] <= 0.05 * (phase["end_ns"] -
+                                           phase["start_ns"]) / 1e9
     data = codec.encode(proof)
     assert data == _lurk_tpu_host_proof()
     assert digest == hashlib.sha256(data).hexdigest() == \

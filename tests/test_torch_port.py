@@ -146,6 +146,32 @@ device=None if device is True else device)
 return self._prove_host(pk, queries, challenger, shard_config)
 '''.strip().splitlines())
 
+# The port's machine.py also opens the root span of a recorded prove
+# (stark/spans.py) around device_prove, and drops lurk_tpu's verify timer
+# (LURK_TPU_VERIFY_TIMING), which nothing reads: these lines, lurk_tpu's
+# and the port's, may change too.
+MACHINE_RECORDER = set('''
+return device_prove(self, pk, queries, challenger, shard_config,
+with spans.prove(self):
+return device_prove(self, pk, queries, challenger,
+shard_config,
+# LURK_TPU_VERIFY_TIMING=1 prints per-phase wall times
+_vt = _os.environ.get("LURK_TPU_VERIFY_TIMING", "0") == "1"
+_t0 = _time.perf_counter()
+def _vlog(label):
+nonlocal _t0
+t1 = _time.perf_counter()
+if _vt:
+print(f"[verify-timing] {label}: {t1 - _t0:.4f}s",
+file=_sys.stderr, flush=True)
+_t0 = t1
+_vlog("views + prehash dispatch")
+_vlog("shard transcripts")
+_vlog("zeta checks")
+_vlog("pcs rounds")
+_vlog("merkle multi-run")
+'''.strip().splitlines()) | {""}
+
 # witness.py: the host half is lurk_tpu's; its device half (from this line
 # on) is lurk_tpu's jnp code ported to torch
 WITNESS_DEVICE_HALF = "# --- device ("
@@ -154,8 +180,8 @@ WITNESS_DEVICE_HALF = "# --- device ("
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_module_differs_only_in_imports(rel):
     """The JAX-free modules are lurk_tpu's, copied; only import lines may
-    differ, plus machine.prove's routing and witness.py's device half (jnp
-    in lurk_tpu, torch in the port)."""
+    differ, plus machine.prove's routing and recorder, and witness.py's
+    device half (jnp in lurk_tpu, torch in the port)."""
     mine = (ROOT / "lurk_tpu_torch" / rel).read_text().splitlines()
     theirs = (ROOT / "lurk_tpu" / rel).read_text().splitlines()
     if rel == "poseidon/witness.py":
@@ -168,7 +194,8 @@ def test_copied_module_differs_only_in_imports(rel):
     changed = [l[1:].strip() for l in difflib.unified_diff(theirs, mine,
                                                            lineterm="", n=0)
                if l[:1] in "+-" and l[:3] not in ("+++", "---")]
-    allowed = MACHINE_ROUTING if rel == "stark/machine.py" else set()
+    allowed = MACHINE_ROUTING | MACHINE_RECORDER \
+        if rel == "stark/machine.py" else set()
     for line in changed:
         assert line.startswith(("from ", "import ")) or line in allowed, \
             (rel, line)
