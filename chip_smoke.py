@@ -7,8 +7,8 @@ Phases (each raises on failure; nothing is caught):
   1. device: require CUDA; print the card's name and power limit, and
      whether cpp/liblair.so loads;
   2. build: compile the CUDA kernels (nvcc, sm_90a), one nvcc for each
-     source (csrc/poseidon2.cu, csrc/quotient.cu, csrc/open.cu), all at
-     once;
+     source (csrc/poseidon2.cu, csrc/quotient.cu, csrc/open.cu,
+     csrc/witness.cu), all at once;
   3. kernel vs plain: the kernel bit-equal to the plain PyTorch
      permutation at widths 16/24/32/40 (batch 2^16 and 2^16 + 3, chains of
      1 and 2) and to the scalar oracle poseidon/ref.py on a few states;
@@ -40,7 +40,7 @@ Phases (each raises on failure; nothing is caught):
      per device chip, one perm launch per such chip with interactions, one
      open_eval and one open_reduce per shard for all of its height
      groups, one fri_fold per FRI layer above the host tail; phase 16
-     too);
+     too), and its witness_trace launches the device-witness VM chips;
  11. the REPL: one lurk_tpu_torch REPL at the CLI's default config
      (PRODUCTION_CONFIG) loads the demo corpus (golden.DEMO_FILES, `!(clear)`
      before each); every `!(prove)` runs on the card, every proof file
@@ -121,6 +121,13 @@ Phases (each raises on failure; nothing is caught):
      events (the kernel's launches alone, the wrapper's calls) beside its
      plain version, its bound (bytes over HBM against products at the
      tensor cores' exact rate) and the CUDA cores' operations bound.
+ 27. the device witness kernel at full width: witness_trace
+     (lair/witness_kernel.py) bit-equal to its plain version
+     (device_trace.plain_trace on the card) on every device-witness VM chip
+     of phase 10's shard 0, each timed with CUDA events (the kernel's
+     launch alone, the wrapper's calls) beside its plain version and its
+     bound (the trace and streams over HBM against the field operations),
+     with its tile and registers a row.
 
 Every prove of phases 10, 16 and 22-24 starts from an emptied allocator
 cache and holds the memory model: the reserved peak is at most the
@@ -621,8 +628,10 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
     from lurk_tpu_torch.core import eval_compiled, eval_direct
     from lurk_tpu_torch.core.eval_api import evaluate
     from lurk_tpu_torch.core.stark_machine import new_machine
-    from lurk_tpu_torch.lair import native
+    from lurk_tpu_torch.lair import device_trace, native
+    from lurk_tpu_torch.lair.chips import chip_included
     from lurk_tpu_torch.lair.execute import Shard, ShardingConfig
+    from lurk_tpu_torch.stark import device_prover as dp
     from lurk_tpu_torch.stark.challenger import Challenger
     from lurk_tpu_torch.stark.fri import FriConfig
     from lurk_tpu_torch.stark.key_cache import setup_cached
@@ -658,6 +667,10 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
     if (n_shards, cells) != (want_shards, want_cells):
         raise AssertionError(f"{n_shards} shards / {cells} cells, expected "
                              f"{want_shards} / {want_cells}")
+    want_witness = sum(
+        chip_included(c, shard) and device_trace._plans_for(c) is not None
+        and c.num_rows(shard) >= dp._host_chip_min_rows()
+        for shard in Shard(q, 0, cfg).shard() for c in machine.chips)
     runs = []
     for run in ("cold", "warm"):
         torch.cuda.empty_cache()
@@ -686,6 +699,11 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
         if stats["device_witness_chips"] <= 0:
             raise AssertionError(f"{label}fib(100000): no device-made "
                                  "witness")
+        n["witness_trace"] = stats["witness_launches"]
+        if n["witness_trace"] != want_witness:
+            raise AssertionError(f"{label}fib(100000): {n['witness_trace']} "
+                                 f"witness_trace launches, {want_witness} "
+                                 f"device-witness VM chips")
         if len(proof.shard_proofs) != want_shards:
             raise AssertionError(f"{len(proof.shard_proofs)} shards")
     planned = plan_stats.kernel_launches(machine, q, cfg)
@@ -694,7 +712,8 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
                              f"plan_stats counts {planned}")
     print(f"{label}fib(100000): the warm prove's constraint_quotient, "
           f"logup_perm_phi, open_eval, open_reduce and fri_fold launches "
-          f"equal plan_stats.py's count {planned} {on}")
+          f"equal plan_stats.py's count {planned}; witness_trace "
+          f"{want_witness}, one for each device-witness VM chip {on}")
     if runs[0][2] != runs[1][2]:
         raise AssertionError(f"{label}fib(100000): cold and warm proofs "
                              "differ")
@@ -1877,6 +1896,103 @@ def open_kernels_full_width(dev, on: str, mqs, odd_stride: bool = False
     return tot
 
 
+def _witness_ops(chip, shard) -> tuple:
+    """(multiplies, adds) that a VM chip's witness needs over the shard's
+    rows: for a row of path p, a product a MUL op, an inverse a INVZ op and
+    one for all of its requires with 3 products for each further require
+    (Montgomery's trick), an inverse being 41 products (babybear.cuh's
+    minv: 30 squarings, 11 multiplies); an add an ADD, SUB or EQZ op and a
+    require's count + 1."""
+    from lurk_tpu_torch.lair import device_trace as dt
+    fq = shard.queries.func_queries[chip.func.index]
+    rng = shard.get_func_range(chip.func.index)
+    counts = np.bincount(fq.path[rng.start:rng.stop])
+    muls = adds = 0
+    for ident, plan in dt._plans_for(chip).items():
+        rows = int(counts[ident]) if ident < len(counts) else 0
+        code = plan.instrs[:, 0]
+        r = len(plan.req_cols)
+        muls += rows * (int((code == dt.MUL).sum())
+                        + 41 * int((code == dt.INVZ).sum())
+                        + (41 + 3 * (r - 1) if r else 0))
+        adds += rows * (int(np.isin(code, (dt.ADD, dt.SUB, dt.EQZ)).sum())
+                        + r)
+    return muls, adds
+
+
+def witness_kernel_full_width(dev, on: str, mqs) -> dict:
+    """Phase 27: the device witness kernel (lair/witness_kernel.py) against
+    its plain version (device_trace.plain_trace, on the card), bit for bit,
+    on every VM chip of phase 10's shard 0 whose witness the prover makes
+    on the device, at its full height. Each chip's times (CUDA events): the
+    kernel's launch on arguments packed once (its trace held to the plain
+    version's too), the wrapper's calls (sort, packing, upload and launch,
+    as a prove calls it) and the plain version's; its bound (the trace
+    written and the streams read at 3.35 TB/s against the field
+    operations), its tile and registers a row. Returns the totals over the
+    shard's chips: ms (the kernel's), wrapper ms, plain ms, bound ms and
+    what bounds it, the largest absolute error."""
+    import torch
+    from lurk_tpu_torch.lair import device_trace as dt
+    from lurk_tpu_torch.lair import witness_kernel as wk
+    from lurk_tpu_torch.lair.chips import chip_included
+    from lurk_tpu_torch.lair.execute import Shard
+    from lurk_tpu_torch.stark import device_prover as dp
+    machine, _, _, q, cfg = mqs
+    shard = Shard(q, 0, cfg).shard()[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = _max_sm_clock_hz()
+    tot = dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               max_abs_err=0)
+    bytes_ms = chips = rows_all = 0
+    for chip in machine.chips:
+        rows = chip.num_rows(shard) if chip_included(chip, shard) else 0
+        if rows < dp._host_chip_min_rows() or dt._plans_for(chip) is None:
+            continue
+        want = dt.plain_trace(chip, shard, dev)
+        got = wk.witness_trace(chip, shard, dev)
+        _sync()
+        err = int((got.long() - want.long()).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"witness_trace != plain on {chip.name} "
+                                 f"({rows} rows, max abs err {err})")
+        args = wk.witness_args(chip, shard, dev)
+        k_ms = _event_ms(lambda: wk.launch_witness(args), 5)
+        _sync()
+        if not torch.equal(args["trace"].tensor, want):
+            raise AssertionError(f"witness_trace's timed launches != plain "
+                                 f"on {chip.name}")
+        w_ms = _event_ms(lambda: wk.witness_trace(chip, shard, dev), 3)
+        p_ms = _event_ms(lambda: dt.plain_trace(chip, shard, dev), 1)
+        n_bytes = want.nbytes + args["tiles"].tensor.nbytes
+        b_ms, b_by = _kernel_bound(n_bytes, *_witness_ops(chip, shard), sms,
+                                   clock)
+        tot["ms"] += k_ms
+        tot["wrapper_ms"] += w_ms
+        tot["plain_ms"] += p_ms
+        tot["bound_ms"] += b_ms
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        bytes_ms += n_bytes / HBM_BYTES_PER_S * 1e3
+        chips += 1
+        rows_all += rows
+        print(f"witness_trace == plain on {chip.name}, {rows} rows: kernel "
+              f"{k_ms:.4f} ms (wrapper {w_ms:.4f} ms), plain {p_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}) = {b_ms / k_ms:.3f} of the "
+              f"kernel's time; {args['tile']} rows a block, "
+              f"{args['n_reg']} registers a row {on}")
+        del want, got, args
+    tot["bound_by"] = "bytes" if bytes_ms >= tot["bound_ms"] \
+        else "operations"
+    print(f"witness_trace over shard 0's {chips} device-witness chips "
+          f"({rows_all} rows, {sms} SMs at {clock / 1e6:.0f} MHz): kernel "
+          f"{tot['ms']:.4f} ms (wrapper {tot['wrapper_ms']:.4f} ms), plain "
+          f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms = "
+          f"{tot['bound_ms'] / tot['ms']:.3f} of the kernel's time, max abs "
+          f"err {tot['max_abs_err']} {on}")
+    torch.cuda.empty_cache()
+    return tot
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1885,7 +2001,7 @@ def main() -> int:
     os.environ.setdefault("LURK_TPU_PROVE_TIMING", "1")
 
     from lurk_tpu_torch.field import babybear as bb
-    from lurk_tpu_torch.lair import native
+    from lurk_tpu_torch.lair import native, witness_kernel
     from lurk_tpu_torch.poseidon import cuda_kernel, perm, ref
     from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
     from lurk_tpu_torch.stark import (golden, hasher, open_kernel,
@@ -1907,12 +2023,13 @@ def main() -> int:
 
     # 2. build: one nvcc for each source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = [pool.submit(b.build, verbose=True)
-                  for b in (cuda_kernel, quotient_kernel, open_kernel)]
-        lib, qlib, olib = (f.result() for f in builds)
+                  for b in (cuda_kernel, quotient_kernel, open_kernel,
+                            witness_kernel)]
+        lib, qlib, olib, wlib = (f.result() for f in builds)
     print(f"build: {time.perf_counter() - t0:.3f}s {lib.name} {qlib.name} "
-          f"{olib.name} {on}")
+          f"{olib.name} {wlib.name} {on}")
     torch.ones(1, device=dev)
     free, total = torch.cuda.mem_get_info(dev)
     outside = total - free - torch.cuda.memory_reserved(dev)
@@ -2108,6 +2225,10 @@ def main() -> int:
     # 26. this slice: the open kernels at full width
     opening = open_kernels_full_width(dev, on, fib_mqs)
     marks.append(("phase 26", time.perf_counter()))
+
+    # 27. this slice: the device witness kernel at full width
+    witness = witness_kernel_full_width(dev, on, fib_mqs)
+    marks.append(("phase 27", time.perf_counter()))
     del fib_mqs, fib_pipeline
     print("wall seconds: " + ", ".join(
         f"{label} {t - prev:.1f}" for (label, t), prev in
@@ -2166,6 +2287,14 @@ def main() -> int:
         k["launches_by_path"] = {path: n[name] for path, n in by_path.items()
                                  if name in n}
         k["library_ms"] = None
+    kernels.append({
+        "name": "witness_trace",
+        "route": "cuda",
+        "source": "lurk_tpu_torch/csrc/witness.cu",
+        "replaces": "lurk_tpu/lair/device_trace.py:391",
+        **witness,
+        "launches": fib_launches["witness_trace"],
+        "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,10 +11,12 @@ Design: witness generation as data, not programs. Each (func, path) row
 group executes one straight-line op sequence (trace.py groups rows the
 same way), so the op replay is compiled once into a small register
 bytecode (the PathPlan compiler below, lurk_tpu's verbatim) and run by
-one VM shared by every func and path. The VM walks the bytecode in
-Python over whole-group tensors: one eager torch op per instruction over
-every row of the group, with the instructions in host numpy (no device
-sync per instruction).
+one VM shared by every func and path. On a CUDA device the VM is one
+hand-written kernel (csrc/witness.cu, lair/witness_kernel.py): the chip's
+raw query streams go up once and one launch writes the whole trace. On
+the CPU the eager VM below is its plain version: it walks the bytecode in
+Python over whole-group tensors, one torch op per instruction over every
+row of the group, with the instructions in host numpy.
 
 Bit-exactness contract: output rows are identical to
 FuncChip.generate_trace (tests/test_torch_device_trace.py) — mod-p
@@ -564,31 +566,36 @@ def generate_trace_device(chip, shard, device) -> Optional[torch.Tensor]:
     """Device-resident equivalent of FuncChip.generate_trace: returns the
     full (height, width) int32 trace as a tensor on `device`, or None when
     the chip can't run on the VM (extern paths other than terminal
-    hashers / non-columnar query maps)."""
+    hashers / non-columnar query maps). A VM chip's rows come from one
+    launch of csrc/witness.cu on a CUDA device (witness_kernel.py) and
+    from plain_trace, its plain version, on the CPU."""
     from .columnar import ColumnarQueryMap
     device = torch.device(device)
     hw = _hasher_width(chip)
-    if hw is not None:
-        fq = shard.queries.func_queries[chip.func.index]
-        if isinstance(fq, ColumnarQueryMap):
-            return _hasher_trace_device(chip, shard, hw, device)
+    if hw is None and _plans_for(chip) is None:
         return None
-    plans = _plans_for(chip)
-    if plans is None:
-        return None
-    queries = shard.queries
-    fq = queries.func_queries[chip.func.index]
+    fq = shard.queries.func_queries[chip.func.index]
     if not isinstance(fq, ColumnarQueryMap):
         return None
-    rng = shard.get_func_range(chip.func.index)
-    n = len(rng)
-    width = chip.width
-    from .trace import next_power_of_two
-    height = next_power_of_two(n)
-    trace = _init_trace(height, width, rng.start, device)
-    if n == 0:
-        return trace
+    if hw is not None:
+        return _hasher_trace_device(chip, shard, hw, device)
+    if device.type == "cuda" and len(shard.get_func_range(chip.func.index)):
+        from .witness_kernel import witness_trace
+        return witness_trace(chip, shard, device)
+    return plain_trace(chip, shard, device)
 
+
+def plain_trace(chip, shard, device) -> torch.Tensor:
+    """The witness kernel's plain version, on any device: the trace of a
+    VM chip (its paths compile, its queries are columnar) from eager row
+    groups, one per path, each gathered and padded on the host, uploaded,
+    run through _witness_vm and scattered into the rows."""
+    plans = _plans_for(chip)
+    fq = shard.queries.func_queries[chip.func.index]
+    rng = shard.get_func_range(chip.func.index)
+    from .trace import next_power_of_two
+    trace = _init_trace(next_power_of_two(len(rng)), chip.width, rng.start,
+                        torch.device(device))
     paths_arr = fq.path[rng.start:rng.stop]
     partial_func = chip.func.partial
     for p in np.unique(paths_arr):

@@ -1375,16 +1375,18 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
     host-clock seconds of the latter (`host_witness_s`), each shard's
     chips whose perm trace and quotient take the host path
     (`host_path_chips`), and the prove's launches of the Poseidon2,
-    constraint_quotient, logup_perm_phi, open_eval, open_reduce and
-    fri_fold kernels (`kernel_launches`, `quotient_launches`,
-    `perm_launches`, `open_eval_launches`, `open_reduce_launches`,
-    `fri_fold_launches`, printed to stderr in a recorded prove, so that a
-    CLI run reports them). On a CUDA device also the measured peaks:
+    constraint_quotient, logup_perm_phi, open_eval, open_reduce,
+    fri_fold and device witness kernels (`kernel_launches`,
+    `quotient_launches`, `perm_launches`, `open_eval_launches`,
+    `open_reduce_launches`, `fri_fold_launches`, `witness_launches`,
+    printed to stderr in a recorded prove, so that a CLI run reports
+    them). On a CUDA device also the measured peaks:
     `peak_allocated_bytes`, `peak_reserved_bytes` and `phase_peaks`, one
     dict per phase (its allocated and reserved peaks, the allocated memory
     at its end and the model's bytes for it). The spans of a recorded
     prove (stark/spans.py) are added by StarkMachine.prove."""
     from ..lair.chips import chip_included
+    from ..lair.witness_kernel import witness_trace
     from ..poseidon.cuda_kernel import permute_mont_cuda
     from .machine import MachineProof
     from .open_kernel import fri_fold, open_eval, open_reduce
@@ -1398,7 +1400,8 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
                "perm_launches": logup_perm_phi,
                "open_eval_launches": open_eval,
                "open_reduce_launches": open_reduce,
-               "fri_fold_launches": fri_fold}
+               "fri_fold_launches": fri_fold,
+               "witness_launches": witness_trace}
     launches0 = {k: fn.launches for k, fn in counted.items()}
     with span("plan"):
         shards, hbm_budget = hbm.plan_shards(machine, queries, shard_config,
@@ -1564,7 +1567,8 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
               f"{stats['perm_launches']} logup_perm_phi launches, "
               f"{stats['open_eval_launches']} open_eval launches, "
               f"{stats['open_reduce_launches']} open_reduce launches, "
-              f"{stats['fri_fold_launches']} fri_fold launches",
+              f"{stats['fri_fold_launches']} fri_fold launches, "
+              f"{stats['witness_launches']} witness_trace launches",
               file=_sys.stderr, flush=True)
     return MachineProof(shard_proofs, list(pv))
 

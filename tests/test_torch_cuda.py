@@ -10,8 +10,12 @@ kernels (stark/open_kernel.py) against their plain versions at heights
 height group of fib(100000)'s shard 0 in one launch each (and an
 all-(p - 1) column of 2^15 + 3 rows, an all-(p - 1) group wider than
 open_reduce's s32 sums), from three threads at once in a fresh process,
-in device_open_rounds (a repeated point) and in the Lurk golden proof.
-Every test skips without a card.
+in device_open_rounds (a repeated point) and in the Lurk golden proof;
+the device witness kernel (lair/witness_kernel.py) against its plain
+version on every VM chip of golden.LURK_PROGRAM and of a fib(3000) in
+shards of 1024 rows, from three threads at once in a fresh process, and
+in the Lurk golden proofs in one shard and two. Every test skips without
+a card.
 
 This file imports no jax (the card's machine has none), so it runs there
 without tests/conftest.py:
@@ -711,3 +715,112 @@ def test_lurk_golden_through_the_open_kernels(cuda, monkeypatch):
     assert got == [planned["open_eval"], planned["open_reduce"],
                    planned["fri_fold"]]
     assert min(got) > 0
+
+
+# ---------------------------------------------------------------------------
+# the device witness kernel (lair/witness_kernel.py)
+# ---------------------------------------------------------------------------
+
+# Run in a fresh process, so that no launch before it has set the kernel's
+# shared-memory attribute: three host threads launch witness_trace at once
+# on one card, as parallel/shard_prover.py's threads do on a mesh whose
+# slots repeat a device, over every VM chip of golden.LURK_PROGRAM (one
+# shard) and of a Lurk fib(3000) at ShardingConfig(1024) (every shard),
+# three times each; every trace must equal the plain version's
+# (device_trace.plain_trace on the card) bit for bit.
+_WITNESS_CHILD = """
+import sys, threading
+import torch
+sys.path.insert(0, sys.argv[1])
+from lurk_tpu_torch.lair import device_trace as dt
+from lurk_tpu_torch.lair import witness_kernel as wk
+from lurk_tpu_torch.lair.chips import chip_included
+from lurk_tpu_torch.lair.execute import Shard, ShardingConfig
+from lurk_tpu_torch.stark import golden
+from lurk_tpu_torch.stark.fri import FriConfig
+cuda = torch.device("cuda")
+FIB3000 = ("(letrec ((fib (lambda (n) (if (<= n 1) n (+ (fib (- n 1)) "
+           "(fib (- (- n 1) 1))))))) (fib 3000))")
+cases = []
+for code, size in ((golden.LURK_PROGRAM, None), (FIB3000, 1024)):
+    machine, q, _ = golden.lurk_machine(code, FriConfig(1, 8, 2))
+    cfg = None if size is None else ShardingConfig(size)
+    for shard in Shard(q, 0, cfg).shard():
+        for chip in machine.chips:
+            if dt._plans_for(chip) is not None and \\
+                    chip_included(chip, shard) and chip.num_rows(shard):
+                cases.append((chip, shard, dt.plain_trace(chip, shard, cuda)))
+torch.cuda.synchronize()
+errors, start = [], threading.Barrier(3)
+
+def work(mine):
+    try:
+        start.wait()
+        outs = [[wk.witness_trace(c, s, cuda) for c, s, _ in mine]
+                for _ in range(3)]
+        torch.cuda.synchronize()
+        for out in outs:
+            for got, (c, s, want) in zip(out, mine):
+                assert torch.equal(got, want), (c.name, s.index)
+    except Exception as e:
+        errors.append(repr(e))
+
+threads = [threading.Thread(target=work, args=(cases[k::3],))
+           for k in range(3)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+assert not errors, errors
+assert wk.witness_trace.launches == 3 * len(cases), len(cases)
+print(len(cases), "ok")
+"""
+
+
+def test_witness_kernel_matches_plain_from_threads_at_once(cuda):
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, "-c", _WITNESS_CHILD, str(root)],
+                         capture_output=True, text=True, timeout=900)
+    assert run.returncode == 0 and run.stdout.split()[-1:] == ["ok"], \
+        run.stdout[-2000:] + run.stderr[-4000:]
+
+
+def test_lurk_golden_through_the_witness_kernel(cuda, monkeypatch):
+    """golden.LURK_PROGRAM with every chip on the device path, in one shard
+    (keep mode `light`) and in two (keep mode `none`: pass 2 makes each
+    device witness again): the proofs keep lurk_tpu's sha256, and the
+    kernel made every VM chip's witness, its rows counted as
+    `witness_kernel_rows`."""
+    from lurk_tpu_torch.lair import device_trace as dt
+    from lurk_tpu_torch.lair.chips import chip_included
+    from lurk_tpu_torch.lair.execute import Shard, ShardingConfig
+    from lurk_tpu_torch.stark import hbm, spans
+    from lurk_tpu_torch.stark.challenger import Challenger
+    monkeypatch.setenv("LURK_TPU_DEVICE_CHIP_MIN_ROWS", "0")
+    monkeypatch.setattr(hbm, "keep_rounds_fits", lambda *a: False)
+    monkeypatch.setattr(hbm, "keep_light_fits", lambda *a: False)
+    machine, q, _ = golden.lurk_machine(golden.LURK_PROGRAM,
+                                        FriConfig(1, 8, 2))
+    spans.enable(True)
+    try:
+        for size, want in ((None, golden.GOLDEN_LURK_SHA256),
+                           (golden.LURK_2SHARD_SIZE,
+                            golden.GOLDEN_LURK_2SHARD_SHA256)):
+            _, vk, proof, digest = golden.lurk_proof(cuda, size, (machine, q))
+            assert digest == want
+            assert machine.verify(vk, proof, Challenger())
+            stats = machine.last_device_prove
+            made = 1 if size is None else 2
+            assert stats["keep_mode"] == ("light" if made == 1 else "none")
+            rows = [c.num_rows(s) for s in Shard(
+                q, 0, None if size is None else ShardingConfig(size)).shard()
+                for c in machine.chips if dt._plans_for(c) is not None
+                and chip_included(c, s) and c.num_rows(s)]
+            assert stats["witness_launches"] == made * len(rows) > 0
+            assert stats["counters"]["witness_kernel_rows"] == \
+                made * sum(rows)
+    finally:
+        spans.enable(None)
