@@ -533,12 +533,21 @@ def _hasher_trace_device(chip, shard, width: int, device) -> torch.Tensor:
     """(height, chip.width) device trace for a terminal-hasher func:
     row = [nonce | preimg(W) | img(8) | provide(2) | out8+wide witness |
     sel]. Streams uploaded: args/outputs/provide only (~W+10 values/row);
-    the hundreds of witness columns are born on the device."""
+    the hundreds of witness columns are born on the device. A
+    `witness.hasher` span of a recorded prove (its uploads are
+    `witness.upload` spans inside it); its real rows count as
+    `hasher_rows`."""
+    with spans.span("witness.hasher", each=True):
+        return _hasher_trace(chip, shard, width, device)
+
+
+def _hasher_trace(chip, shard, width: int, device) -> torch.Tensor:
     from ..poseidon.witness import populate_batch_device
     from .trace import next_power_of_two
     fq = shard.queries.func_queries[chip.func.index]
     rng = shard.get_func_range(chip.func.index)
     n = len(rng)
+    spans.count("hasher_rows", n)
     height = next_power_of_two(n)
     trace = _init_trace(height, chip.width, rng.start, device)
     if n == 0:

@@ -25,6 +25,7 @@ from lurk_tpu.lair.execute import ShardingConfig as JShardingConfig
 from lurk_tpu.stark.challenger import Challenger as JChallenger
 from lurk_tpu.stark.fri import FriConfig as JFriConfig
 from lurk_tpu.utils import codec as jcodec
+from lurk_tpu_torch.lair.execute import Shard
 from lurk_tpu_torch.stark import golden, hbm, spans
 from lurk_tpu_torch.stark.challenger import Challenger
 from lurk_tpu_torch.stark.fri import FriConfig
@@ -62,8 +63,9 @@ def _port_machine():
 
 def test_one_shard_device_witness_proof_matches_lurk_tpu(monkeypatch):
     """Proved with the recorder on (stark/spans.py): the bytes are the
-    golden's, the spans nest and cover the prove, and the copy counters
-    equal the bytes the copy helpers moved."""
+    golden's, the spans nest and cover the prove, the copy counters equal
+    the bytes the copy helpers moved, and `hasher_rows` counts the hasher
+    chips' rows."""
     monkeypatch.setenv("LURK_TPU_DEVICE_WITNESS", "1")
     moved = tally_copies(monkeypatch)
     spans.enable(True)
@@ -75,12 +77,18 @@ def test_one_shard_device_witness_proof_matches_lurk_tpu(monkeypatch):
     stats = machine.last_device_prove
     assert stats["shards"] == 1 and stats["keep_mode"] == "full"
     assert stats["device_witness_chips"] >= 16
-    assert stats["counters"] == moved
+    shard = Shard(_port_machine()[1], 0, None).shard()[0]
+    hashers = sum(c.num_rows(shard) for c in machine.chips
+                  if c.name in ("Func[hash3]", "Func[hash4]", "Func[hash5]"))
+    counters = dict(stats["counters"])
+    assert counters.pop("hasher_rows") == hashers > 0
+    assert counters == moved
     rows = stats["spans"]
     check_nesting(rows)
     names = {r["name"] for r in rows}
-    assert {"witness.host", "witness.device", "witness.upload"} <= names
-    # the witness phase is its three leaves
+    assert {"witness.host", "witness.device", "witness.upload",
+            "witness.hasher"} <= names
+    # the witness phase is its leaves
     (phase,) = [r for r in rows if r["name"] == "witness+upload"]
     assert phase["exclusive_s"] <= 0.05 * (phase["end_ns"] -
                                            phase["start_ns"]) / 1e9
