@@ -128,6 +128,12 @@ Phases (each raises on failure; nothing is caught):
      launch alone, the wrapper's calls) beside its plain version and its
      bound (the trace and streams over HBM against the field operations),
      with its tile and registers a row.
+ 28. the NTT kernel's LDE: lde_cuda (field/ntt_kernel.py) bit-equal to
+     its plain version (device_prover._lde_group_plain on the card) on
+     random traces of every main and perm height group of phase 10's
+     shard 0 and of sum(100000)'s largest groups, each timed with CUDA
+     events (the kernel's launches alone, the wrapper's calls) beside
+     its plain version and its bound (16 bytes a trace cell over HBM).
 
 Every prove of phases 10, 16 and 22-24 starts from an emptied allocator
 cache and holds the memory model: the reserved peak is at most the
@@ -178,6 +184,12 @@ MICROCHAIN_STATE = (
     "amount))) (cons total (commit (acc total)))))))) (cons 0 (commit (acc "
     "0))))")
 FIB100K_ARTIFACT = ROOT / "benches" / "artifacts" / "fib100k_4shard_proof.bin.gz"
+# sum(100000)'s largest commit groups on the whole card, (round, log2
+# height, width): plan_stats.open_groups of its direct-toplevel
+# evaluation, which takes about two minutes
+SUM100K_LDE_GROUPS = (("main", 20, 78), ("main", 19, 148), ("main", 18, 291),
+                      ("main", 17, 952), ("perm", 20, 92), ("perm", 19, 316),
+                      ("perm", 18, 280), ("perm", 17, 216))
 # phase 20's mesh-commit budget in LDE cells: under the largest group of
 # every fib(100000) shard (40,894,464 LDE cells in shards 2 and 3)
 MESH_COMMIT_CELLS = 1 << 25
@@ -704,6 +716,10 @@ def fib100k(dev, on: str, code: str, shard_size: int, want_shards: int,
             raise AssertionError(f"{label}fib(100000): {n['witness_trace']} "
                                  f"witness_trace launches, {want_witness} "
                                  f"device-witness VM chips")
+        n["lurk_ntt_pass"] = stats["ntt_launches"]
+        if n["lurk_ntt_pass"] <= 0:
+            raise AssertionError(f"{label}fib(100000): no NTT kernel "
+                                 f"launch")
         if len(proof.shard_proofs) != want_shards:
             raise AssertionError(f"{len(proof.shard_proofs)} shards")
     planned = plan_stats.kernel_launches(machine, q, cfg)
@@ -1993,6 +2009,98 @@ def witness_kernel_full_width(dev, on: str, mqs) -> dict:
     return tot
 
 
+def _ntt_ops(log_h: int, w: int) -> tuple:
+    """(multiplies, adds) that the LDE of a (2^log_h, w) group needs: three
+    h-point transforms a column (the INTT and the two cosets), h/2 log h
+    butterflies each, a product and an add and a subtract a butterfly; the
+    1/h scale and the two cosets' shifts, h products each."""
+    h = 1 << log_h
+    return w * (3 * (h // 2) * log_h + 3 * h), w * 3 * h * log_h
+
+
+def ntt_kernel_full_width(dev, on: str, mqs) -> dict:
+    """Phase 28: the NTT kernel's LDE (field/ntt_kernel.py::lde_cuda)
+    against its plain version (device_prover._lde_group_plain, the eager
+    int64 composition on the card), bit for bit, on random traces of the
+    shapes the commits take: every main and perm height group of phase
+    10's shard 0 and sum(100000)'s largest groups on the whole card. Each
+    group's times (CUDA events): the kernel's launches on arguments packed
+    once, the wrapper's calls (allocation, tables, packing, launches) and
+    the plain version's; its bytes bound, the trace read and the
+    coefficients and LDE written at 3.35 TB/s (16 bytes a trace cell),
+    against its operations bound (_ntt_ops). Returns the totals: ms (the
+    kernel's), wrapper ms, plain ms, bound ms and what bounds it, the
+    bytes bound alone (bytes_ms), the largest absolute error."""
+    import torch
+    from lurk_tpu_torch.field import babybear as bb
+    from lurk_tpu_torch.field import ntt_kernel as nk
+    from lurk_tpu_torch.plan_stats import open_groups
+    from lurk_tpu_torch.stark import device_prover as dp
+    machine, _, _, q, cfg = mqs
+    groups = [(f"fib(100000) shard 0 {rnd}", lh, w)
+              for rnd, lh, w, _ in open_groups(machine, q, cfg)[0]
+              if rnd in ("main", "perm")]
+    groups += [(f"sum(100000) {rnd}", lh, w)
+               for rnd, lh, w in SUM100K_LDE_GROUPS]
+    rng = np.random.default_rng(28)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = _max_sm_clock_hz()
+    tot = dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               bytes_ms=0.0, max_abs_err=0)
+    for label, log_h, w in groups:
+        h = 1 << log_h
+        group = torch.from_numpy(rng.integers(0, bb.P, (h, w)).astype(
+            np.int32)).to(dev)
+        want = dp._lde_group_plain(group, log_h)
+        got = nk.lde_cuda(group, log_h)
+        _sync()
+        err = max(int((g.long() - x.long()).abs().max())
+                  for g, x in zip(got, want))
+        if not all(torch.equal(g, x) for g, x in zip(got, want)):
+            raise AssertionError(f"lde_cuda != plain on {label} (2^{log_h} "
+                                 f"x {w}, max abs err {err})")
+        cfs, lde = got
+        passes = nk.transform_args(group, cfs, log_h, True,
+                                   scale=bb.inv_s(h % bb.P)) + \
+            nk.transform_args(cfs, lde, log_h, False, coset_log_h=log_h)
+        k_ms = _event_ms(lambda: nk._launch(passes, h * w), 10)
+        _sync()
+        if not (torch.equal(cfs, want[0]) and torch.equal(lde, want[1])):
+            raise AssertionError(f"lde_cuda's timed launches != plain on "
+                                 f"{label}")
+        w_ms = _event_ms(lambda: nk.lde_cuda(group, log_h), 10)
+        p_ms = _event_ms(lambda: dp._lde_group_plain(group, log_h), 1)
+        n_bytes = 16 * h * w
+        b_ms, b_by = _kernel_bound(n_bytes, *_ntt_ops(log_h, w), sms, clock)
+        by_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        tot["ms"] += k_ms
+        tot["wrapper_ms"] += w_ms
+        tot["plain_ms"] += p_ms
+        tot["bound_ms"] += b_ms
+        tot["bytes_ms"] += by_ms
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        print(f"lde_cuda == plain on {label}, 2^{log_h} x {w}: kernel "
+              f"{k_ms:.4f} ms over {len(passes)} launches (wrapper "
+              f"{w_ms:.4f} ms), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}) = {b_ms / k_ms:.3f} of the kernel's time, bytes "
+              f"alone {by_ms:.4f} ms = {by_ms / k_ms:.3f}; passes (log "
+              f"points, log columns a block) {nk.pass_plan(log_h, w)} {on}",
+              flush=True)
+        del group, want, got, cfs, lde, passes
+    tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["bound_ms"] \
+        else "operations"
+    print(f"lde_cuda over {len(groups)} groups ({sms} SMs at "
+          f"{clock / 1e6:.0f} MHz): kernel {tot['ms']:.4f} ms (wrapper "
+          f"{tot['wrapper_ms']:.4f} ms), plain {tot['plain_ms']:.4f} ms, "
+          f"bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}) = "
+          f"{tot['bound_ms'] / tot['ms']:.3f} of the kernel's time, bytes "
+          f"alone {tot['bytes_ms']:.4f} ms = "
+          f"{tot['bytes_ms'] / tot['ms']:.3f}, max abs err "
+          f"{tot['max_abs_err']} {on}")
+    torch.cuda.empty_cache()
+    return tot
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2001,6 +2109,7 @@ def main() -> int:
     os.environ.setdefault("LURK_TPU_PROVE_TIMING", "1")
 
     from lurk_tpu_torch.field import babybear as bb
+    from lurk_tpu_torch.field import ntt_kernel
     from lurk_tpu_torch.lair import native, witness_kernel
     from lurk_tpu_torch.poseidon import cuda_kernel, perm, ref
     from lurk_tpu_torch.poseidon.cuda_kernel import permute_mont_cuda
@@ -2023,13 +2132,13 @@ def main() -> int:
 
     # 2. build: one nvcc for each source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         builds = [pool.submit(b.build, verbose=True)
                   for b in (cuda_kernel, quotient_kernel, open_kernel,
-                            witness_kernel)]
-        lib, qlib, olib, wlib = (f.result() for f in builds)
+                            witness_kernel, ntt_kernel)]
+        lib, qlib, olib, wlib, nlib = (f.result() for f in builds)
     print(f"build: {time.perf_counter() - t0:.3f}s {lib.name} {qlib.name} "
-          f"{olib.name} {wlib.name} {on}")
+          f"{olib.name} {wlib.name} {nlib.name} {on}")
     torch.ones(1, device=dev)
     free, total = torch.cuda.mem_get_info(dev)
     outside = total - free - torch.cuda.memory_reserved(dev)
@@ -2229,6 +2338,10 @@ def main() -> int:
     # 27. this slice: the device witness kernel at full width
     witness = witness_kernel_full_width(dev, on, fib_mqs)
     marks.append(("phase 27", time.perf_counter()))
+
+    # 28. this slice: the NTT kernel's LDE at the commits' shapes
+    ntt = ntt_kernel_full_width(dev, on, fib_mqs)
+    marks.append(("phase 28", time.perf_counter()))
     del fib_mqs, fib_pipeline
     print("wall seconds: " + ", ".join(
         f"{label} {t - prev:.1f}" for (label, t), prev in
@@ -2294,6 +2407,14 @@ def main() -> int:
         "replaces": "lurk_tpu/lair/device_trace.py:391",
         **witness,
         "launches": fib_launches["witness_trace"],
+        "library_ms": None})
+    kernels.append({
+        "name": "lurk_ntt_pass",
+        "route": "cuda",
+        "source": "lurk_tpu_torch/csrc/ntt.cu",
+        "replaces": "lurk_tpu/field/ntt.py:168",
+        **ntt,
+        "launches": fib_launches["lurk_ntt_pass"],
         "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -87,9 +87,23 @@ def _torch_tables(log_n: int, inverse: bool, device: torch.device):
 
 
 def device_ntt(x: torch.Tensor, log_n: int, inverse: bool) -> torch.Tensor:
-    """Column-batched radix-2 DIT NTT of a (2^log_n, w) tensor of canonical
-    values; natural order in and out. Returns int64 canonical values (the
-    callers chain more int64 arithmetic)."""
+    """Column-batched NTT of a (2^log_n, w) tensor of canonical values;
+    natural order in and out. Returns int64 canonical values (the callers
+    chain more int64 arithmetic). A CUDA tensor takes the hand-written
+    kernel (field/ntt_kernel.py::ntt_cuda, up to the field's 2^27 points);
+    a CPU tensor the eager stages of device_ntt_plain."""
+    if x.device.type == "cuda":
+        from . import ntt_kernel
+        return ntt_kernel.ntt_cuda(x.to(bb.I32).contiguous(), log_n,
+                                   inverse).to(bb.I64)
+    return device_ntt_plain(x, log_n, inverse)
+
+
+def device_ntt_plain(x: torch.Tensor, log_n: int,
+                     inverse: bool) -> torch.Tensor:
+    """The eager radix-2 DIT stages over the whole int64 matrix: a
+    bit-reversal gather, then per stage a strided product, its reduction,
+    the sums and differences and their fix-ups. int64 canonical out."""
     if log_n == 0:
         return x.to(bb.I64)
     n = 1 << log_n

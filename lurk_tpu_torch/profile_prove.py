@@ -12,11 +12,11 @@ power limit, the warm prove's wall seconds, the device busy time (the
 union of the intervals of every device event: kernels and copies) and its
 share of the wall, the number of device events, the total time and
 launches of each hand-written kernel (Poseidon2, constraint_quotient,
-logup_perm_phi, open_eval, open_reduce, fri_fold), the device kernels by
-total time and, beside them, the host seconds of each span name summed
-over the shards (with and without its child spans). With --trace, writes
-the chrome trace there: the spans over the kernels, on one clock. Needs a
-card; it exits non-zero without one.
+logup_perm_phi, open_eval, open_reduce, fri_fold, the NTT), the device
+kernels by total time and, beside them, the host seconds of each span name
+summed over the shards (with and without its child spans). With --trace,
+writes the chrome trace there: the spans over the kernels, on one clock.
+Needs a card; it exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -70,6 +70,7 @@ def main(argv=None) -> int:
     from .core.eval_api import evaluate
     from .core.eval_direct import build_lurk_toplevel
     from .core.stark_machine import new_machine
+    from .field.ntt_kernel import ntt_cuda
     from .lair.execute import ShardingConfig
     from .poseidon.cuda_kernel import permute_mont_cuda
     from .stark.challenger import Challenger
@@ -108,7 +109,8 @@ def main(argv=None) -> int:
                "logup_perm_phi": (logup_perm_phi, "perm_phi_kernel"),
                "open_eval": (open_eval, "open_eval_kernel"),
                "open_reduce": (open_reduce, "open_reduce_kernel"),
-               "fri_fold": (fri_fold, "fri_fold_kernel")}
+               "fri_fold": (fri_fold, "fri_fold_kernel"),
+               "NTT": (ntt_cuda, "lurk_ntt_pass")}
     for fn, _ in kernels.values():
         fn.launches = 0
     spans.enable(True, ranges=True)

@@ -50,7 +50,9 @@ import torch
 from ..air.symbolic import Add, Col, Const, Mul, Pub, Sel, Sub
 from ..field import babybear as bb
 from ..field import ext as ext_t
-from ..field.ntt import GENERATOR, coset_eval, device_ntt
+from ..field import ntt_kernel
+from ..field.ntt import GENERATOR, coset_eval, device_ntt, \
+    device_ntt_plain, shift_powers_dev
 from .fri import FriConfig, FriProof, FriQuery, FriQueryStep, geom_powers
 from . import pcs as host_pcs
 from .spans import PhasePeaks, recording, span
@@ -345,10 +347,18 @@ class DRound:
 
 
 def _lde_kernel(group, log_h: int):
-    """(h, w) trace evals -> (coeffs (h, w), lde (2h, w)), int32."""
+    """(h, w) trace evals -> (coeffs (h, w), lde (2h, w)), int32: the
+    eager int64 composition (an INTT, its 1/h, a zero-padded coset NTT)
+    on any device, the NTT kernel's plain version."""
     n = 1 << log_h
-    coeffs = device_ntt(group, log_h, True) * bb.inv_s(n % P) % P
-    return coeffs.to(I32), coset_eval(coeffs, LOG_BLOWUP)
+    big_log = log_h + LOG_BLOWUP
+    coeffs = device_ntt_plain(group, log_h, True) * bb.inv_s(n % P) % P
+    padded = torch.zeros((1 << big_log, int(group.shape[1])), dtype=I64,
+                         device=group.device)
+    padded[:n] = coeffs
+    sp = shift_powers_dev(big_log, GENERATOR, group.device)
+    return coeffs.to(I32), device_ntt_plain(padded * sp[:, None] % P,
+                                            big_log, False).to(I32)
 
 
 def _col_chunks(W: int, log_h: int):
@@ -360,9 +370,19 @@ def _col_chunks(W: int, log_h: int):
 
 def _lde_group(group_mats: list, log_h: int):
     """[(h, w_i)] device mats (one height group) -> (coeffs (h, W), lde
-    (2h, W)), column-chunked when the group is large."""
+    (2h, W)): the NTT kernel's LDE on a CUDA device, in one call over the
+    whole group (it allocates nothing but its outputs); elsewhere
+    _lde_group_plain."""
     group = torch.cat(group_mats, dim=1) if len(group_mats) > 1 \
         else group_mats[0]
+    if group.device.type == "cuda":
+        return ntt_kernel.lde_cuda(group.contiguous(), log_h)
+    return _lde_group_plain(group, log_h)
+
+
+def _lde_group_plain(group, log_h: int):
+    """The eager _lde_kernel over a (h, W) group, column-chunked when the
+    group is large: the NTT kernel's plain version, on any device."""
     W = int(group.shape[1])
     spans = _col_chunks(W, log_h)
     if len(spans) == 1:
@@ -376,8 +396,11 @@ def _lde_group(group_mats: list, log_h: int):
 
 
 def _lde_group_from_coeffs(cfs, log_h: int):
-    """Column-chunked LDE regeneration from kept coefficients (keep-light
-    recommit); the same values as _lde_group's LDE."""
+    """LDE regeneration from kept coefficients (keep-light recommit): the
+    NTT kernel's forward half on a CUDA device, elsewhere column-chunked
+    eager coset_eval; the same values as _lde_group's LDE."""
+    if cfs.device.type == "cuda":
+        return ntt_kernel.coset_lde_cuda(cfs, log_h)
     W = int(cfs.shape[1])
     spans = _col_chunks(W, log_h)
     if len(spans) == 1:
@@ -1376,11 +1399,11 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
     chips whose perm trace and quotient take the host path
     (`host_path_chips`), and the prove's launches of the Poseidon2,
     constraint_quotient, logup_perm_phi, open_eval, open_reduce,
-    fri_fold and device witness kernels (`kernel_launches`,
+    fri_fold, device witness and NTT kernels (`kernel_launches`,
     `quotient_launches`, `perm_launches`, `open_eval_launches`,
     `open_reduce_launches`, `fri_fold_launches`, `witness_launches`,
-    printed to stderr in a recorded prove, so that a CLI run reports
-    them). On a CUDA device also the measured peaks:
+    `ntt_launches`, printed to stderr in a recorded prove, so that a CLI
+    run reports them). On a CUDA device also the measured peaks:
     `peak_allocated_bytes`, `peak_reserved_bytes` and `phase_peaks`, one
     dict per phase (its allocated and reserved peaks, the allocated memory
     at its end and the model's bytes for it). The spans of a recorded
@@ -1401,7 +1424,8 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
                "open_eval_launches": open_eval,
                "open_reduce_launches": open_reduce,
                "fri_fold_launches": fri_fold,
-               "witness_launches": witness_trace}
+               "witness_launches": witness_trace,
+               "ntt_launches": ntt_kernel.ntt_cuda}
     launches0 = {k: fn.launches for k, fn in counted.items()}
     with span("plan"):
         shards, hbm_budget = hbm.plan_shards(machine, queries, shard_config,
@@ -1568,7 +1592,8 @@ def device_prove(machine, pk, queries, challenger, shard_config=None,
               f"{stats['open_eval_launches']} open_eval launches, "
               f"{stats['open_reduce_launches']} open_reduce launches, "
               f"{stats['fri_fold_launches']} fri_fold launches, "
-              f"{stats['witness_launches']} witness_trace launches",
+              f"{stats['witness_launches']} witness_trace launches, "
+              f"{stats['ntt_launches']} NTT pass launches",
               file=_sys.stderr, flush=True)
     return MachineProof(shard_proofs, list(pv))
 

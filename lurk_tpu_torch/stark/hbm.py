@@ -20,8 +20,10 @@ by the prover's own chunk constants:
                   2^18 rows (lair/device_trace.py)
   commit          int32 trace mats (4 B/cell), coefficients (4 B/cell),
                   LDE (8 B/cell) and tree digests (128 B/row of a group);
-                  the int64 INTT + coset NTT of one LDE_CHUNK_CELLS column
-                  chunk; the leaf sponge of one row block
+                  on the CPU the int64 INTT + coset NTT of one
+                  LDE_CHUNK_CELLS column chunk (on CUDA the NTT kernel
+                  allocates nothing but the coefficients and the LDE); the
+                  group's concat; the leaf sponge of one row block
   perm trace      on the CPU: the int32 columns of the chip, the int64
                   fingerprints of one _gperm_rows chunk, the whole-chip
                   int64 batch contributions before they narrow; on CUDA
@@ -44,8 +46,8 @@ with the caching
 allocator's slack (reserved over allocated memory). The byte counts come
 from the stages' code; the margin, the slack, the reserve and the headroom
 were fitted on the card named beside them, where the model bounds the
-measured max_memory_reserved of every proof chip_smoke.py runs by 1.1 to
-1.3 times.
+measured max_memory_reserved of every proof chip_smoke.py runs by 1.06 to
+1.32 times (NVIDIA H100 80GB HBM3, 700 W, with the NTT kernel).
 """
 
 from __future__ import annotations
@@ -151,13 +153,16 @@ def _round_bytes(groups: Dict[int, int]) -> int:
                for h, w in groups.items())
 
 
-def _commit_transient(groups: Dict[int, int], from_coeffs=False) -> int:
+def _commit_transient(groups: Dict[int, int], from_coeffs=False,
+                      cuda: bool = False) -> int:
     """The largest group's concat, its LDE column chunk's int64 NTTs and
-    its leaf-sponge row block (device_prover._lde_group, dcommit)."""
+    its leaf-sponge row block (device_prover._lde_group, dcommit). On
+    CUDA the NTT kernel (field/ntt_kernel.py) allocates nothing but its
+    outputs, which the round holds: no LDE chunk."""
     from .device_prover import LDE_CHUNK_CELLS
     worst = 0
     for h, w in groups.items():
-        chunk = h * min(w, max(8, LDE_CHUNK_CELLS // h))
+        chunk = 0 if cuda else h * min(w, max(8, LDE_CHUNK_CELLS // h))
         lde = _LDE_BYTES_PER_CELL * chunk + (0 if from_coeffs else 4 * h * w)
         leaf = _HASH_BYTES_PER_CELL * min(2 * h * w, LDE_CHUNK_CELLS)
         worst = max(worst, lde, leaf)
@@ -245,14 +250,15 @@ class _Shard:
         self.t_witness = max((_WITNESS_BYTES_PER_CELL * c.width
                               * min(c.h, _WITNESS_CHUNK) for c in dev),
                              default=0)
-        self.t_commit = _commit_transient(main)
-        self.t_recommit = _commit_transient(main, from_coeffs=True)
+        self.t_commit = _commit_transient(main, cuda=cuda)
+        self.t_recommit = _commit_transient(main, from_coeffs=True,
+                                            cuda=cuda)
         self.t_perm = max((_perm_transient(c, cuda) for c in dev),
                           default=0)
-        self.t_perm_commit = _commit_transient(perm)
+        self.t_perm_commit = _commit_transient(perm, cuda=cuda)
         self.t_quot = max((_quotient_transient(c, cuda) for c in dev),
                           default=0)
-        self.t_quot_commit = _commit_transient(quot)
+        self.t_quot_commit = _commit_transient(quot, cuda=cuda)
         self.t_open = _open_transient(list(main.items())
                                       + list(perm.items())
                                       + list(quot.items()), cuda)

@@ -6,6 +6,7 @@ fri_fold at the same shard's shapes.
 
     python3 scripts/quotient_phase25.py [TREE] [--open] [--odd-stride]
     python3 scripts/quotient_phase25.py [TREE] --witness
+    python3 scripts/quotient_phase25.py [TREE] --ntt
 
 TREE (default: this checkout) is the root of the checkout whose
 chip_smoke.py and lurk_tpu_torch to run, so that one call on the card can
@@ -14,7 +15,7 @@ phase 26 alone; with --odd-stride, phase 26 also holds and times
 open_eval on column slices of wider matrices (odd row strides, the
 inputs of the tree before the grouped open_eval). With --witness, phase
 27 alone (the device witness kernel), where the tree's chip_smoke.py has
-it. Needs a card;
+it; with --ntt, phase 28 alone (the NTT kernel's LDE). Needs a card;
 prints the card's name and power limit and each chip's or group's line as
 chip_smoke.py does, then the totals as JSON.
 """
@@ -26,7 +27,7 @@ from pathlib import Path
 
 
 def main() -> int:
-    flags = {"--open", "--odd-stride", "--witness"}
+    flags = {"--open", "--odd-stride", "--witness", "--ntt"}
     args = [a for a in sys.argv[1:] if a not in flags]
     root = Path(args[0] if args else
                 Path(__file__).resolve().parents[1]).resolve()
@@ -48,6 +49,12 @@ def main() -> int:
     machine = new_machine(toplevel, FriConfig())
     _, q = evaluate(toplevel, zstore, chip_smoke.FIB100K_CODE)
     mqs = (machine, None, None, q, ShardingConfig(262144))
+    if "--ntt" in sys.argv:
+        tot = {"lurk_ntt_pass": chip_smoke.ntt_kernel_full_width(
+            torch.device("cuda"), f"[{gpu}]", mqs)} \
+            if hasattr(chip_smoke, "ntt_kernel_full_width") else {}
+        print(json.dumps(tot))
+        return 0
     if "--witness" in sys.argv:
         tot = {"witness_trace": chip_smoke.witness_kernel_full_width(
             torch.device("cuda"), f"[{gpu}]", mqs)} \

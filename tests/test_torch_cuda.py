@@ -14,8 +14,12 @@ in device_open_rounds (a repeated point) and in the Lurk golden proof;
 the device witness kernel (lair/witness_kernel.py) against its plain
 version on every VM chip of golden.LURK_PROGRAM and of a fib(3000) in
 shards of 1024 rows, from three threads at once in a fresh process, and
-in the Lurk golden proofs in one shard and two. Every test skips without
-a card.
+in the Lurk golden proofs in one shard and two; the NTT kernel
+(field/ntt_kernel.py) against field/ntt.py's eager stages from 2^0 to
+2^23 rows (one pass to three) and 1 to 655 columns, its LDE against
+_lde_kernel's, from three threads at once in a fresh process, and in the
+Lurk golden proof with its launches counted in the commit and quotient
+spans. Every test skips without a card.
 
 This file imports no jax (the card's machine has none), so it runs there
 without tests/conftest.py:
@@ -824,3 +828,158 @@ def test_lurk_golden_through_the_witness_kernel(cuda, monkeypatch):
                 made * sum(rows)
     finally:
         spans.enable(None)
+
+
+# ---------------------------------------------------------------------------
+# the NTT kernel (field/ntt_kernel.py)
+# ---------------------------------------------------------------------------
+
+NTT_WIDTHS = (1, 4, 7, 32, 33, 655)   # 655: sum100k's hash4; 4: the epilogue
+
+
+@pytest.mark.parametrize("log_n", [0, 1, 5, 11, 12, 17, 19, 20, 23])
+def test_ntt_kernel_matches_plain(cuda, log_n):
+    """ntt_cuda forward and inverse against field/ntt.py's eager stages on
+    the card, at every width whose plain transform fits (n w <= 2^27);
+    device_ntt takes the kernel. 2^23 rows: the quotient epilogue's INTT
+    of a 2^22-row chip, in three passes."""
+    from lurk_tpu_torch.field import ntt as tntt
+    from lurk_tpu_torch.field import ntt_kernel as nk
+    rng = np.random.default_rng(log_n)
+    n = 1 << log_n
+    for w in (w for w in NTT_WIDTHS if n * w <= 1 << 27):
+        x = torch.from_numpy(rng.integers(0, bb.P, (n, w)).astype(np.int32))
+        x.view(-1)[:2] = torch.tensor([0, bb.P - 1])[:n * w]
+        x = x.to(cuda)
+        for inverse in (False, True):
+            before = nk.ntt_cuda.launches
+            got = nk.ntt_cuda(x, log_n, inverse)
+            want = tntt.device_ntt_plain(x, log_n, inverse)
+            assert torch.equal(got, want.to(torch.int32)), (log_n, w, inverse)
+            assert nk.ntt_cuda.launches - before == \
+                len(nk.pass_plan(log_n, w))
+            assert torch.equal(tntt.device_ntt(x, log_n, inverse), want)
+        del x, got, want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("log_h,w", [(0, 3), (3, 8), (9, 38), (10, 5),
+                                     (12, 100), (17, 655), (18, 40),
+                                     (22, 4), (23, 2)])
+def test_lde_kernel_matches_plain(cuda, log_h, w):
+    """lde_cuda and coset_lde_cuda against _lde_kernel's eager composition
+    on the card (group shapes as the commits have them: sum100k's hash4 at
+    2^17 x 655; the two passes of 2^22 rows and the three of 2^23)."""
+    from lurk_tpu_torch.field import ntt_kernel as nk
+    rng = np.random.default_rng(log_h * 1000 + w)
+    h = 1 << log_h
+    group = torch.from_numpy(rng.integers(0, bb.P, (h, w)).astype(
+        np.int32)).to(cuda)
+    want_c, want_l = dp._lde_kernel(group, log_h)
+    cfs, lde = nk.lde_cuda(group, log_h)
+    assert torch.equal(cfs, want_c) and torch.equal(lde, want_l)
+    assert torch.equal(nk.coset_lde_cuda(want_c, log_h), want_l)
+    del group, want_c, want_l, cfs, lde
+    torch.cuda.empty_cache()
+
+
+def test_ntt_kernel_rejects_what_it_does_not_take(cuda):
+    from lurk_tpu_torch.field import ntt_kernel as nk
+    x = torch.zeros((16, 3), dtype=torch.int32, device=cuda)
+    for bad, match in ((x.long(), "int32"), (x[:, 0], "2-D"),
+                       (x[:8], r"\(16, w\)"),
+                       (torch.zeros((3, 16), dtype=torch.int32,
+                                    device=cuda).t(), "contiguous"),
+                       (x.cpu(), "CUDA tensor")):
+        with pytest.raises(ValueError, match=match):
+            nk.ntt_cuda(bad, 4, False)
+        with pytest.raises(ValueError, match=match):
+            nk.lde_cuda(bad, 4)
+        with pytest.raises(ValueError, match=match):
+            nk.coset_lde_cuda(bad, 4)
+
+
+_NTT_CHILD = r"""
+import sys, threading
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from lurk_tpu_torch.field import ntt as tntt
+from lurk_tpu_torch.field import ntt_kernel as nk
+cuda = torch.device("cuda")
+rng = np.random.default_rng(7)
+cases = [(log_n, w, torch.from_numpy(rng.integers(
+    0, 2013265921, (1 << log_n, w)).astype(np.int32)).to(cuda))
+    for log_n, w in ((3, 5), (10, 40), (13, 7), (16, 33), (18, 4), (12, 1))]
+want = [(tntt.device_ntt_plain(x, log_n, False).to(torch.int32),
+         tntt.device_ntt_plain(x, log_n, True).to(torch.int32))
+        for log_n, w, x in cases]
+torch.cuda.synchronize()
+errors = []
+def work(k):
+    try:
+        for _ in range(4):
+            for (log_n, w, x), (fwd, inv) in zip(cases[k::3], want[k::3]):
+                assert torch.equal(nk.ntt_cuda(x, log_n, False), fwd)
+                assert torch.equal(nk.ntt_cuda(x, log_n, True), inv)
+    except Exception as e:
+        errors.append(repr(e))
+threads = [threading.Thread(target=work, args=(k,)) for k in range(3)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+assert not errors, errors
+assert nk.ntt_cuda.launches == 4 * 2 * sum(
+    len(nk.pass_plan(log_n, w)) for log_n, w, _ in cases)
+print("ok")
+"""
+
+
+def test_ntt_kernel_launches_from_threads_at_once(cuda):
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, "-c", _NTT_CHILD, str(root)],
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0 and run.stdout.split()[-1:] == ["ok"], \
+        run.stdout[-2000:] + run.stderr[-4000:]
+
+
+def test_lurk_golden_through_the_ntt_kernel(cuda, monkeypatch):
+    """golden.LURK_PROGRAM proved with the NTT kernel: lurk_tpu's sha256,
+    NTT launches counted per prove, every main.commit, perm.commit and
+    quotient.device span counts ntt_launches and ntt_cells, and no eager
+    NTT stage runs on the card (device_ntt_plain refuses CUDA tensors)."""
+    from lurk_tpu_torch.field import ntt as tntt
+    from lurk_tpu_torch.field import ntt_kernel as nk
+    from lurk_tpu_torch.stark import spans
+    from lurk_tpu_torch.stark.challenger import Challenger
+    monkeypatch.setenv("LURK_TPU_DEVICE_CHIP_MIN_ROWS", "0")
+    plain = tntt.device_ntt_plain
+
+    def host_only(x, log_n, inverse):
+        assert x.device.type != "cuda", (tuple(x.shape), log_n, inverse)
+        return plain(x, log_n, inverse)
+
+    monkeypatch.setattr(tntt, "device_ntt_plain", host_only)
+    monkeypatch.setattr(dp, "device_ntt_plain", host_only)
+    before = nk.ntt_cuda.launches
+    spans.enable(True)
+    try:
+        machine, vk, proof, digest = golden.lurk_proof(cuda)
+    finally:
+        spans.enable(None)
+    assert digest == golden.GOLDEN_LURK_SHA256
+    assert machine.verify(vk, proof, Challenger())
+    stats = machine.last_device_prove
+    assert 0 < stats["ntt_launches"] <= nk.ntt_cuda.launches - before
+    assert stats["counters"]["ntt_launches"] == stats["ntt_launches"]
+    seen = set()
+    for s in stats["spans"]:
+        if s["name"] in ("main.commit", "perm.commit", "quotient.device"):
+            assert s.get("ntt_launches", 0) > 0, s
+            assert s.get("ntt_cells", 0) > 0, s
+            seen.add(s["name"])
+    assert seen == {"main.commit", "perm.commit", "quotient.device"}

@@ -252,3 +252,23 @@ def test_cuda_models_the_open_kernels_buffers():
     cpu = dict(hbm.prove_phases(_MACHINE, shards, "full", "cpu"))
     on_card = dict(hbm.prove_phases(_MACHINE, shards, "full", "cuda"))
     assert on_card["shard0 open"] < cpu["shard0 open"]
+
+
+def test_cuda_models_the_ntt_kernels_commit():
+    """On CUDA the commit holds the NTT kernel's outputs, which the round
+    counts, and the group's concat: no int64 column chunk of the LDE,
+    which the CPU's model keeps (its plans stay lurk_tpu's). The leaf
+    sponge's row block is the same on both."""
+    from lurk_tpu_torch.stark import device_prover as dp
+    h, w = 1 << 18, 148
+    groups = {h: w}
+    assert hbm._commit_transient(groups, cuda=True) == max(
+        4 * h * w, 32 * min(2 * h * w, dp.LDE_CHUNK_CELLS))
+    assert hbm._commit_transient(groups, from_coeffs=True, cuda=True) == \
+        32 * min(2 * h * w, dp.LDE_CHUNK_CELLS)
+    chunk = h * min(w, max(8, dp.LDE_CHUNK_CELLS // h))
+    assert hbm._commit_transient(groups) == 104 * chunk + 4 * h * w
+    shards = _shards(1 << 18, 4)
+    cpu = dict(hbm.prove_phases(_MACHINE, shards, "full", "cpu"))
+    cuda = dict(hbm.prove_phases(_MACHINE, shards, "full", "cuda"))
+    assert cuda["shard0 main commit"] < cpu["shard0 main commit"]
